@@ -5,21 +5,24 @@
 
 Phases, each of which raises (and so exits non-zero) on a failed check:
   1. device: the card's name and power limit;
-  2. build: the CUDA C++ kernels (K1/K2) from osmosis_tpu_torch/ops/csrc with
-     nvcc for sm_90a;
+  2. build: the CUDA C++ kernels (K1-K4) from osmosis_tpu_torch/ops/csrc with
+     nvcc for sm_90a, one nvcc per source, all started together;
   3. kernels: every kernel (K1-K4) against its plain PyTorch version at every
      shape the main path gives it, fp32 and bf16, forward and backward, timed
-     on the device (one CUDA-graph replay per call) and eagerly, beside its
+     on the device (ten calls captured in one CUDA graph, replayed) and
+     eagerly, beside its
      plain version, its byte bound and one PyTorch library call that
-     computes the same function;
+     computes the same function; K3/K4 also give the same bits on a second
+     call and launch the device kernels their geometry plans (1 or 2);
   4. a tiny UNet, forward and x-VJP, through the kernels on the card against
      the plain versions on the CPU;
   5. the main path at full width: the reference preset through
      ``run_restoration`` (the CLI's entry point) with a seeded random-init
      checkpoint, 20 respaced steps, one image; the kernels' launch counts are
      zeroed just before and read just after. Then the first step's UNet
-     forward and pullback, timed and FLOP-counted, and seconds per warm
-     guided step.
+     forward and pullback, timed and FLOP-counted, seconds per warm guided
+     step, and the device's busy share over one warm guided step from
+     ``torch.profiler``.
 The line before the last gives the card's name and power limit, the one
 before it the kernels' JSON summary; the last line is the result.
 Without a CUDA device, or without the package beside it, it exits non-zero
@@ -63,55 +66,6 @@ def nvidia_smi_line():
     if proc.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {proc.stderr}")
     return proc.stdout.strip().splitlines()[0]
-
-
-def cuda_time_ms(fn, iters=None):
-    """Mean time of ``fn()`` over a run of back-to-back eager calls, by CUDA
-    events after warm-up. Where the host launches slower than the card runs,
-    this is the host's time per call."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    if iters is None:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        iters = int(min(50, max(3, 0.05 / max(time.perf_counter() - t0, 1e-6))))
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_time_ms(fn, replays=20):
-    """Device time of one ``fn()``: the call captured once in a CUDA graph,
-    then replayed back to back, so that no host launch gap is counted."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / replays
-    del graph
-    return ms
 
 
 def check_close(what, got, ref, kind, dtype_name):
@@ -178,6 +132,8 @@ def check_resample_kernels(ups, pools, report):
     import torch
     import torch.nn.functional as F
 
+    from osmosis_tpu_torch.utils.timing import cuda_time_ms, graph_time_ms
+
     from osmosis_tpu_torch.ops import upsample as U
 
     rows = []
@@ -229,12 +185,15 @@ def check_norm_kernels(gn_sites, report):
     import torch
     import torch.nn.functional as F
 
+    from osmosis_tpu_torch.utils.timing import cuda_time_ms, graph_time_ms
+
     from osmosis_tpu_torch.ops import group_norm as G
 
     rows = []
     agg_f = dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                  max_abs_err=0.0)
     agg_b = dict(agg_f)
+    classes = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for (c, h, w, mode), n in counted(gn_sites).items():
         for dtype in (torch.float32, torch.bfloat16):
@@ -252,11 +211,35 @@ def check_norm_kernels(gn_sites, report):
             gy = rnd(1, c, h, w).contiguous(memory_format=torch.channels_last)
             tag = f"group_norm C={c} {h}x{w} {mode} {dn}"
 
+            k0 = (G.group_norm_forward.kernel_launches, G.group_norm_backward.kernel_launches)
             y, m, i = G.group_norm_forward(x, wgt, bias, fs, ft, silu)
-            yp, mp, ip = G.group_norm_forward_plain(x, wgt, bias, fs, ft, silu)
+            k1 = G.group_norm_forward.kernel_launches
             grads = G.group_norm_backward(gy, x, wgt, bias, fs, ft, silu, m, i)
+            k2 = G.group_norm_backward.kernel_launches
+            yp, mp, ip = G.group_norm_forward_plain(x, wgt, bias, fs, ft, silu)
             gradsp = G.group_norm_backward_plain(gy, x, wgt, bias, fs, ft, silu, mp, ip)
+            # a second call of each, and the backward without the parameter
+            # sums (the main path's), must give the same bits
+            y2, m2, i2 = G.group_norm_forward(x, wgt, bias, fs, ft, silu)
+            grads2 = G.group_norm_backward(gy, x, wgt, bias, fs, ft, silu, m, i)
+            dx_only = G.group_norm_backward(gy, x, wgt, bias, fs, ft, silu, m, i,
+                                            param_grads=False)[0]
             torch.cuda.synchronize()
+            same = (torch.equal(y, y2) and torch.equal(m, m2) and torch.equal(i, i2)
+                    and all(a is None or torch.equal(a, b2) for a, b2 in zip(grads, grads2))
+                    and torch.equal(dx_only, grads[0]))
+            if not same:
+                raise AssertionError(f"{tag}: two calls are not bit-identical")
+            geo = []
+            for bwd, k_call in ((False, k1 - k0[0]), (True, k2 - k0[1])):
+                sums = 4 if (bwd and fs is not None) else 2
+                p = G._device_plan(torch.cuda.current_device(), 1, c, h, w,
+                                   G._DTYPE_CODES[dtype], G._mode(fs, silu), bwd, sums,
+                                   G.MAX_CLUSTER)
+                if k_call != p.kernels or k_call > 2:
+                    raise AssertionError(f"{tag}: {k_call} device kernels in one call, "
+                                         f"expected {p.kernels} ({p.geometry})")
+                geo.append(f"{p.geometry}/{p.cluster}")
             err_f = check_close(tag + " forward", y, yp, "norm", dn)
             check_close(tag + " mean", m, mp, "norm", "float32")
             check_close(tag + " inv", i, ip, "norm", "float32")
@@ -278,7 +261,9 @@ def check_norm_kernels(gn_sites, report):
                     return torch.autograd.grad(lib_fwd(xr), xr, gy)
 
             fwd = lambda: G.group_norm_forward(x, wgt, bias, fs, ft, silu)  # noqa: E731
-            bwd = lambda: G.group_norm_backward(gy, x, wgt, bias, fs, ft, silu, m, i)  # noqa: E731
+            # timed as the main path calls it: x-only, no parameter-gradient sums
+            bwd = lambda: G.group_norm_backward(gy, x, wgt, bias, fs, ft, silu, m, i,  # noqa: E731
+                                                param_grads=False)
             t_f, t_fe = graph_time_ms(fwd), cuda_time_ms(fwd)
             t_fp = graph_time_ms(lambda: G.group_norm_forward_plain(x, wgt, bias, fs, ft, silu))
             t_fl = graph_time_ms(lib_fwd)
@@ -293,7 +278,7 @@ def check_norm_kernels(gn_sites, report):
             bound_f = 2 * x.numel() * item / HBM_BYTES_PER_S * 1e3  # read x, write y
             bound_b = 3 * x.numel() * item / HBM_BYTES_PER_S * 1e3  # read x, dy; write dx
             rows.append(dict(kernel="group_norm", C=c, H=h, W=w, mode=mode, dtype=dn,
-                             per_step=n, fwd_err=err_f, bwd_err=err_b, fwd_ms=t_f,
+                             per_step=n, fwd_geometry=geo[0], bwd_geometry=geo[1], fwd_err=err_f, bwd_err=err_b, fwd_ms=t_f,
                              fwd_eager_ms=t_fe, fwd_plain_ms=t_fp, fwd_library_ms=t_fl,
                              fwd_bound_ms=bound_f, bwd_ms=t_b, bwd_eager_ms=t_be,
                              bwd_plain_ms=t_bp, bwd_library_ms=t_bl, bwd_bound_ms=bound_b))
@@ -301,8 +286,15 @@ def check_norm_kernels(gn_sites, report):
                 f"{t_fe * 1e3:.1f}) plain {t_fp * 1e3:.1f} library {t_fl * 1e3:.1f} bound "
                 f"{bound_f * 1e3:.1f} | K4 {t_b * 1e3:.1f} us (eager {t_be * 1e3:.1f}) plain "
                 f"{t_bp * 1e3:.1f} library {t_bl * 1e3:.1f} bound {bound_b * 1e3:.1f} "
-                f"(x{n} per step)")
+                f"(x{n} per step; {geo[0]} / {geo[1]})")
             if dtype == torch.float32:
+                cls = classes.setdefault(site_class(h), dict(sites=0, k3_ms=0.0, k3_library_ms=0.0,
+                                                             k3_bound_ms=0.0, k4_ms=0.0,
+                                                             k4_library_ms=0.0, k4_bound_ms=0.0))
+                cls["sites"] += n
+                for k, v in (("k3_ms", t_f), ("k3_library_ms", t_fl), ("k3_bound_ms", bound_f),
+                             ("k4_ms", t_b), ("k4_library_ms", t_bl), ("k4_bound_ms", bound_b)):
+                    cls[k] += n * v
                 for agg, vals, e in ((agg_f, (t_f, t_fe, t_fp, bound_f, t_fl), err_f),
                                      (agg_b, (t_b, t_be, t_bp, bound_b, t_bl), err_b)):
                     for k, v in zip(("ms", "eager_ms", "plain_ms", "bound_ms", "library_ms"),
@@ -311,7 +303,17 @@ def check_norm_kernels(gn_sites, report):
                     agg["max_abs_err"] = max(agg["max_abs_err"], e)
     report["group_norm_forward"] = agg_f
     report["group_norm_backward"] = agg_b
+    report["group_norm_classes"] = classes
+    log("  K3/K4 by site class, fp32 device ms per guided step (kernel / library / bound):")
+    for name, cls in classes.items():
+        log(f"    {name} ({cls['sites']} sites): K3 {cls['k3_ms']:.4f} / {cls['k3_library_ms']:.4f}"
+            f" / {cls['k3_bound_ms']:.4f}; K4 {cls['k4_ms']:.4f} / {cls['k4_library_ms']:.4f} / "
+            f"{cls['k4_bound_ms']:.4f}")
     return rows
+
+
+def site_class(h):
+    return "<=32x32" if h <= 32 else "64x64-128x128" if h <= 128 else "256x256"
 
 
 # ---------------------------------------------------------------------------
@@ -388,6 +390,7 @@ def run_main_path(workdir):
     from osmosis_tpu_torch.ops import group_norm as G
     from osmosis_tpu_torch.ops import upsample as U
     from osmosis_tpu_torch.pipelines.restore import run_restoration
+    from osmosis_tpu_torch.utils.timing import cuda_time_ms
 
     cfg_yaml = load_yaml(os.path.join(ROOT, "configs", "osmosis_sample_config.yaml"))
     ucfg = unet_config_from_yaml(cfg_yaml["unet_model"])
@@ -416,14 +419,17 @@ def run_main_path(workdir):
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
+    G.group_norm_forward.kernel_launches = G.group_norm_backward.kernel_launches = 0
     t0 = time.perf_counter()
     out = run_restoration(cfg_path, device="cuda:0")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    gn_kernels = {"group_norm_forward": G.group_norm_forward.kernel_launches,
+                  "group_norm_backward": G.group_norm_backward.kernel_launches}
     peak = torch.cuda.max_memory_allocated()
     log(f"  run_restoration: {wall:.1f} s, run dir {out}")
-    log(f"  launches on the main path: {launches}")
+    log(f"  launches on the main path: {launches}; GroupNorm device kernels: {gn_kernels}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path was never launched: {launches}")
 
@@ -474,7 +480,7 @@ def run_main_path(workdir):
         f"TFLOP; fp32 (TF32 off) at {fwd_flop / fwd_ms / 1e9:.1f} TFLOP/s forward, "
         f"{(fwd_flop + bwd_flop) / fwd_bwd_ms / 1e9:.1f} TFLOP/s forward + pullback "
         f"(fp32 peak {FP32_FLOPS / 1e12:.0f})")
-    return dict(launches=launches, peak_bytes=peak, wall_s=wall, run=row,
+    return dict(launches=launches, gn_kernel_launches=gn_kernels, peak_bytes=peak, wall_s=wall, run=row,
                 unet_fwd_ms=fwd_ms, unet_fwd_pullback_ms=fwd_bwd_ms,
                 unet_fwd_flop=fwd_flop, unet_pullback_flop=bwd_flop,
                 seconds_per_step=row["sample_seconds"] / STEPS, n_params=n_params)
@@ -518,7 +524,39 @@ def time_guided_steps(workdir, n_steps=5):
     torch.cuda.synchronize()
     s = (time.perf_counter() - t0) / n_steps
     log(f"  warm guided step (n_iter {gcfg.n_iter}, phi updated every step): {s * 1e3:.1f} ms")
-    return s
+    return s, device_busy_share(chain, n_steps)
+
+
+def device_busy_share(chain, n_steps):
+    """Kernel time on the device over the wall time of one warm chain of
+    ``n_steps`` guided steps, from torch.profiler (the profiler's own cost is
+    in the wall time). None where the profiler shows no CUDA time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us, gn_us = 0.0, 0.0
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            us = getattr(e, "self_cuda_time_total", 0.0) if us is None else us
+            dev_us += us
+            gn_us += us if "gn_kernel" in e.key else 0.0
+    if dev_us <= 0:
+        log("  device busy share over a warm guided step: not measured (no CUDA time in the "
+            "profile)")
+        return None
+    share = dev_us / 1e6 / wall
+    log(f"  device busy share over {n_steps} warm guided steps (torch.profiler): {share:.3f} "
+        f"({dev_us / 1e3 / n_steps:.1f} ms of kernels per step over {wall * 1e3 / n_steps:.1f} "
+        f"ms wall, profiler on); GroupNorm kernels {gn_us / 1e3 / n_steps:.2f} ms per step")
+    return dict(busy_share=share, device_ms_per_step=dev_us / 1e3 / n_steps,
+                wall_ms_per_step=wall * 1e3 / n_steps, gn_ms_per_step=gn_us / 1e3 / n_steps)
 
 
 def main():
@@ -566,7 +604,7 @@ def main():
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
         main_path = run_main_path(workdir)
-        main_path["warm_seconds_per_step"] = time_guided_steps(workdir)
+        main_path["warm_seconds_per_step"], main_path["busy"] = time_guided_steps(workdir)
     log(f"  seconds per guided step: {main_path['seconds_per_step']:.4f} over the main path's "
         f"{STEPS}-step chain, {main_path['warm_seconds_per_step']:.4f} warm; peak memory "
         f"{main_path['peak_bytes'] / 2 ** 30:.2f} GiB (max_memory_allocated over the main path); "
@@ -586,9 +624,9 @@ def main():
                                 "osmosis_tpu/ops/upsample.py:55"),
         "box_sum_2x": ("cuda", "osmosis_tpu_torch/ops/csrc/upsample.cu",
                        "osmosis_tpu/ops/upsample.py:70"),
-        "group_norm_forward": ("triton", "osmosis_tpu_torch/ops/group_norm_triton.py",
+        "group_norm_forward": ("cuda", "osmosis_tpu_torch/ops/csrc/group_norm.cu",
                                "osmosis_tpu/models/nn.py:72"),
-        "group_norm_backward": ("triton", "osmosis_tpu_torch/ops/group_norm_triton.py",
+        "group_norm_backward": ("cuda", "osmosis_tpu_torch/ops/csrc/group_norm.cu",
                                 "osmosis_tpu/models/nn.py:98"),
     }
     kernels = []
@@ -605,8 +643,8 @@ def main():
                        main_path=main_path, seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"  per-shape rows in results/chip_smoke_report.json; "
         f"total {time.perf_counter() - t_start:.1f} s")
-    log("  kernel ms / plain_ms / bound_ms / library_ms: fp32 device times (CUDA-graph "
-        "replay), summed over one guided step's call sites")
+    log("  kernel ms / plain_ms / bound_ms / library_ms: fp32 device times (ten calls a "
+        "CUDA graph, replayed), summed over one guided step's call sites")
     for k in kernels:
         log(f"    {k['name']}: {k['ms']:.3f} ms (eager calls {report[k['name']]['eager_ms']:.3f})"
             f" plain {k['plain_ms']:.3f} library {k['library_ms']:.3f} bound "

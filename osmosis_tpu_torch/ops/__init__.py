@@ -1,2 +1,2 @@
-"""Hand-written Hopper kernels (K1/K2 in CUDA C++, K3/K4 in Triton), each
-beside its plain PyTorch version."""
+"""Hand-written Hopper kernels (K1-K4, CUDA C++ in ``csrc/``), each beside
+its plain PyTorch version."""

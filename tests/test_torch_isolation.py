@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of ``osmosis_tpu_torch``
 loads neither JAX, Flax nor the JAX package, and no source of the port or
-``chip_smoke.py`` imports them."""
+``chip_smoke.py`` imports them, or Triton: the kernels are CUDA C++."""
 
 import os
 import pkgutil
@@ -11,10 +11,6 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "osmosis_tpu_torch")
 
-# modules that import triton at their top: the launching functions import
-# them on a CUDA tensor only, and this sandbox-free check skips them
-_NEEDS_TRITON = {"osmosis_tpu_torch.ops.group_norm_triton"}
-
 
 def _modules():
     names = ["osmosis_tpu_torch"]
@@ -24,7 +20,7 @@ def _modules():
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
-    mods = [m for m in _modules() if m not in _NEEDS_TRITON]
+    mods = _modules()
     assert len(mods) > 20
     code = (
         "import importlib, sys\n"
@@ -40,9 +36,10 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-def test_no_source_imports_jax_or_the_jax_package():
-    statement = re.compile(r"^\s*(import|from)\s+(jax|flax|osmosis_tpu)(\.|\s|$)", re.M)
-    dynamic = re.compile(r"(import_module|__import__)\(\s*[\"'](jax|flax|osmosis_tpu)[\"'.]")
+def _importers(names):
+    alt = "|".join(names)
+    statement = re.compile(rf"^\s*(import|from)\s+({alt})(\.|\s|$)", re.M)
+    dynamic = re.compile(rf"(import_module|__import__)\(\s*[\"']({alt})[\"'.]")
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, fs in os.walk(PKG):
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
@@ -52,4 +49,14 @@ def test_no_source_imports_jax_or_the_jax_package():
             src = f.read()
         if statement.search(src) or dynamic.search(src):
             offenders.append(os.path.relpath(path, ROOT))
+    return offenders
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    offenders = _importers(["jax", "flax", "osmosis_tpu"])
+    assert not offenders, offenders
+
+
+def test_no_source_imports_triton():
+    offenders = _importers(["triton"])
     assert not offenders, offenders

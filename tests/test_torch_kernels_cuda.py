@@ -6,6 +6,8 @@ one. On the machine with the card, where JAX is absent, run:
 
 Tolerances: K1/K2 exact (a copy, or an fp32 sum in the plain version's order);
 K3/K4 fp32 1e-4 relative to the largest value (order of summation), bf16 3e-2.
+K3/K4 run in both their geometries (``MAX_CLUSTER = 0`` forces the two-launch
+one) and must give the same bits on a second call.
 """
 
 import pytest
@@ -52,32 +54,90 @@ def test_resample_kernels_reject_what_they_do_not_take(cuda):
         U.upsample_nearest_2x_kernel(torch.randn(1, 4, 4, 8, device=cuda).half())
 
 
-@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
-@pytest.mark.parametrize("c,hw,mode", [(256, 64, "silu"), (768, 32, "film"), (1024, 8, "none"),
-                                       (96, 5, "film")])
-def test_group_norm_kernels_match_plain(cuda, dtype, rtol, c, hw, mode):
-    g = torch.Generator(device=cuda).manual_seed(c + hw)
-    x = (1.5 * torch.randn(2, c, hw, hw, device=cuda, generator=g) + 0.3).to(dtype)
+def _gn_inputs(dev, dtype, b, c, h, w, mode, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (1.5 * torch.randn(b, c, h, w, device=dev, generator=g) + 0.3).to(dtype)
     x = x.contiguous(memory_format=torch.channels_last)
-    w = 1 + 0.1 * torch.randn(c, device=cuda, generator=g)
-    b = 0.1 * torch.randn(c, device=cuda, generator=g)
+    wt = 1 + 0.1 * torch.randn(c, device=dev, generator=g)
+    bias = 0.1 * torch.randn(c, device=dev, generator=g)
     fs = ft = None
     if mode == "film":
-        fs = (0.2 * torch.randn(2, c, device=cuda, generator=g)).to(dtype)
-        ft = (0.2 * torch.randn(2, c, device=cuda, generator=g)).to(dtype)
-    silu = mode != "none"
-    gy = torch.randn(2, c, hw, hw, device=cuda, generator=g).to(dtype)
-    gy = gy.contiguous(memory_format=torch.channels_last)
-    y, m, i = G.group_norm_forward(x, w, b, fs, ft, silu)
-    yp, mp, ip = G.group_norm_forward_plain(x, w, b, fs, ft, silu)
-    got = G.group_norm_backward(gy, x, w, b, fs, ft, silu, m, i)
-    ref = G.group_norm_backward_plain(gy, x, w, b, fs, ft, silu, mp, ip)
+        fs = (0.2 * torch.randn(b, c, device=dev, generator=g)).to(dtype)
+        ft = (0.2 * torch.randn(b, c, device=dev, generator=g)).to(dtype)
+    gy = torch.randn(b, c, h, w, device=dev, generator=g).to(dtype)
+    return x, wt, bias, fs, ft, mode != "none", gy.contiguous(memory_format=torch.channels_last)
+
+
+# every group width of the main path (C = 32 x 8 ... 32 x 64), and 3 channels
+# a group (C = 96), at a ragged HW, B = 2, in both geometries
+@pytest.mark.parametrize("geometry", ["resident", "split"])
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)])
+@pytest.mark.parametrize("c,h,w", [(256, 12, 10), (512, 9, 7), (768, 8, 8), (1024, 6, 5),
+                                   (1536, 4, 4), (2048, 3, 5), (96, 5, 5)])
+@pytest.mark.parametrize("mode", ["none", "silu", "film"])
+def test_group_norm_kernels_match_plain(cuda, monkeypatch, geometry, dtype, rtol, c, h, w,
+                                        mode):
+    if geometry == "split":
+        monkeypatch.setattr(G, "MAX_CLUSTER", 0)
+    x, wt, bias, fs, ft, silu, gy = _gn_inputs(cuda, dtype, 2, c, h, w, mode, c + h)
+    k0 = (G.group_norm_forward.kernel_launches, G.group_norm_backward.kernel_launches)
+    y, m, i = G.group_norm_forward(x, wt, bias, fs, ft, silu)
+    got = G.group_norm_backward(gy, x, wt, bias, fs, ft, silu, m, i)
+    per_call = 1 if geometry == "resident" else 2
+    assert G.group_norm_forward.kernel_launches == k0[0] + per_call
+    assert G.group_norm_backward.kernel_launches == k0[1] + per_call
+    yp, mp, ip = G.group_norm_forward_plain(x, wt, bias, fs, ft, silu)
+    ref = G.group_norm_backward_plain(gy, x, wt, bias, fs, ft, silu, mp, ip)
     torch.cuda.synchronize()
     for name, a, r in [("y", y, yp), ("mean", m, mp), ("inv", i, ip)] + [
             (n, a, r) for n, a, r in zip(("dx", "dw", "db", "ds", "dt"), got, ref)
-            if a is not None]:
+            if a is not None or r is not None]:
         ok, err = _close(a, r, rtol if name not in ("mean", "inv") else 1e-4)
         assert ok, f"{name}: max abs err {err}"
+    # a second call gives the same bits, and so does the x-only backward
+    y2, m2, i2 = G.group_norm_forward(x, wt, bias, fs, ft, silu)
+    again = G.group_norm_backward(gy, x, wt, bias, fs, ft, silu, m, i)
+    dx_only = G.group_norm_backward(gy, x, wt, bias, fs, ft, silu, m, i, param_grads=False)
+    assert dx_only[1:] == (None, None, None, None)
+    assert torch.equal(y, y2) and torch.equal(m, m2) and torch.equal(i, i2)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(dx_only[0], got[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("max_cluster,tile_budget", [(8, None), (16, 200 * 1024)])
+def test_group_norm_at_main_path_widths(cuda, monkeypatch, dtype, max_cluster, tile_budget):
+    """128x128 and C=768 (24 channels a group) as the main path plans them,
+    and with clusters of 16 and tiles up to 196 KB, which the kernels take
+    but the plan does not choose by default."""
+    monkeypatch.setattr(G, "MAX_CLUSTER", max_cluster)
+    if tile_budget is not None:
+        monkeypatch.setattr(G, "TILE_BUDGET", tile_budget)
+    G._device_plan.cache_clear()
+    try:
+        x, wt, bias, fs, ft, silu, gy = _gn_inputs(cuda, dtype, 1, 768, 128, 128, "silu", 7)
+        y, m, i = G.group_norm_forward(x, wt, bias, fs, ft, silu)
+        dx = G.group_norm_backward(gy, x, wt, bias, fs, ft, silu, m, i, param_grads=False)[0]
+        yp, mp, ip = G.group_norm_forward_plain(x, wt, bias, fs, ft, silu)
+        dxp = G.group_norm_backward_plain(gy, x, wt, bias, fs, ft, silu, mp, ip)[0]
+        torch.cuda.synchronize()
+    finally:
+        G._device_plan.cache_clear()
+    rtol = 1e-4 if dtype == torch.float32 else 3e-2
+    for a, r in ((y, yp), (dx, dxp)):
+        ok, err = _close(a, r, rtol)
+        assert ok, err
+
+
+def test_group_norm_rejects_what_it_does_not_take(cuda):
+    x, wt, bias, _, _, _, gy = _gn_inputs(cuda, torch.float32, 1, 64, 4, 4, "none", 0)
+    with pytest.raises(ValueError, match="channels_last"):
+        G.group_norm_forward(x.contiguous(), wt, bias)
+    y, m, i = G.group_norm_forward(x, wt, bias)
+    with pytest.raises(ValueError, match="channels_last"):
+        G.group_norm_backward(gy.contiguous(), x, wt, bias, None, None, False, m, i)
+    with pytest.raises(TypeError):
+        G.group_norm_forward(x.half(), wt, bias)
 
 
 def test_autograd_through_the_kernels_matches_the_cpu(cuda):
