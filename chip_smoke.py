@@ -22,9 +22,24 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
      zeroed just before and read just after. Then the first step's UNet
      forward and pullback, timed and FLOP-counted, seconds per warm guided
      step, and the device's busy share over one warm guided step from
-     ``torch.profiler``.
+     ``torch.profiler``;
+  6. the bf16 fast path at full width: the hybrid preset (bf16 torso, the
+     UNet pullback at every 4th step, the x0 gradient between) through
+     ``run_restoration`` with ddim20, one image, the same checkpoint; the
+     launch counts are asserted per step kind (K3 at every step, K4 and the
+     backward resampling at the x_prev steps only) and the loaded torso's
+     dtypes printed;
+  7. bf16 timing: seconds per warm x_prev step and per warm x0 step, the
+     busy share over a warm hybrid chain, the bf16 UNet forward and forward +
+     pullback against the 989 TFLOP/s bf16 peak;
+  8. the RGBD prior sampler (``run_prior_sampling``) at full width, fp32, 20
+     steps, one image: K3 at every forward, K4 never; seconds per step;
+  9. rgb_guidance (vanilla DPS) through ``run_restoration``, fp32, 10 steps,
+     one image: the run dir complete.
 The line before the last gives the card's name and power limit, the one
-before it the kernels' JSON summary; the last line is the result.
+before it the kernels' JSON summary (each kernel's fp32 numbers on the main
+path and its bf16 per-step numbers on the hybrid path); the last line is the
+result.
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
 """
@@ -40,6 +55,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "results")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM bf16 dense on the tensor cores
 STEPS = 20
 
 # tolerances, max|kernel - plain| <= atol + rtol * max|plain|:
@@ -128,7 +144,7 @@ def counted(items):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_resample_kernels(ups, pools, report):
+def check_resample_kernels(ups, pools, report, k_hybrid):
     import torch
     import torch.nn.functional as F
 
@@ -138,14 +154,18 @@ def check_resample_kernels(ups, pools, report):
 
     rows = []
     # per guided step: K1 runs forward at every upsample and backward at every
-    # pool (scale 0.25); K2 forward at every pool and backward at every upsample
+    # pool (scale 0.25); K2 forward at every pool and backward at every upsample.
+    # The forwards run at every step, the backwards at full (x_prev) steps only:
+    # on the hybrid path one step in k_hybrid.
     k1_sites = [(s, 1.0) for s in ups] + [((b, h // 2, w // 2, c), 0.25) for b, h, w, c in pools]
     k2_sites = [((b, 2 * h, 2 * w, c), 1.0) for b, h, w, c in ups] + [(s, 0.25) for s in pools]
-    for name, sites, kernel, plain in (
+    for name, sites, kernel, plain, fwd_scale in (
             ("upsample_nearest_2x", k1_sites, U.upsample_nearest_2x_kernel,
-             U.upsample_nearest_2x_plain),
-            ("box_sum_2x", k2_sites, U.box_sum_2x_kernel, U.box_sum_2x_plain)):
+             U.upsample_nearest_2x_plain, 1.0),
+            ("box_sum_2x", k2_sites, U.box_sum_2x_kernel, U.box_sum_2x_plain, 0.25)):
         agg = dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                   max_abs_err=0.0)
+        hyb = dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                    max_abs_err=0.0)
         for (shape, scale), n in counted(sites).items():
             for dtype in (torch.float32, torch.bfloat16):
@@ -177,11 +197,18 @@ def check_resample_kernels(ups, pools, report):
                                  ("bound_ms", bound), ("library_ms", t_l)):
                         agg[k] += n * v
                     agg["max_abs_err"] = max(agg["max_abs_err"], err)
+                else:  # the bf16 hybrid path, per step on average
+                    w = n if scale == fwd_scale else n / k_hybrid
+                    for k, v in (("ms", t_k), ("eager_ms", t_e), ("plain_ms", t_p),
+                                 ("bound_ms", bound), ("library_ms", t_l)):
+                        hyb[k] += w * v
+                    hyb["max_abs_err"] = max(hyb["max_abs_err"], err)
         report[name] = agg
+        report[name + "_bf16_hybrid"] = hyb
     return rows
 
 
-def check_norm_kernels(gn_sites, report):
+def check_norm_kernels(gn_sites, report, k_hybrid):
     import torch
     import torch.nn.functional as F
 
@@ -193,6 +220,12 @@ def check_norm_kernels(gn_sites, report):
     agg_f = dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                  max_abs_err=0.0)
     agg_b = dict(agg_f)
+    hyb_f = dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                 max_abs_err=0.0)
+    hyb_b = dict(hyb_f)
+    # the output norm runs in fp32 on the bf16 path too (the torso's output is
+    # cast to fp32 before it); it is the last site of the plan
+    out_site = gn_sites[-1]
     classes = {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for (c, h, w, mode), n in counted(gn_sites).items():
@@ -301,8 +334,21 @@ def check_norm_kernels(gn_sites, report):
                                     vals):
                         agg[k] += n * v
                     agg["max_abs_err"] = max(agg["max_abs_err"], e)
+            # the bf16 hybrid path: K3 at every step, K4 at one step in k_hybrid;
+            # its sites run bf16 but for the output norm
+            n_site = int((c, h, w, mode) == out_site)
+            n_site = n_site if dtype == torch.float32 else n - n_site
+            for hyb, wt, vals, e in (
+                    (hyb_f, n_site, (t_f, t_fe, t_fp, bound_f, t_fl), err_f),
+                    (hyb_b, n_site / k_hybrid, (t_b, t_be, t_bp, bound_b, t_bl), err_b)):
+                for k, v in zip(("ms", "eager_ms", "plain_ms", "bound_ms", "library_ms"), vals):
+                    hyb[k] += wt * v
+                if wt:
+                    hyb["max_abs_err"] = max(hyb["max_abs_err"], e)
     report["group_norm_forward"] = agg_f
     report["group_norm_backward"] = agg_b
+    report["group_norm_forward_bf16_hybrid"] = hyb_f
+    report["group_norm_backward_bf16_hybrid"] = hyb_b
     report["group_norm_classes"] = classes
     log("  K3/K4 by site class, fp32 device ms per guided step (kernel / library / bound):")
     for name, cls in classes.items():
@@ -377,20 +423,126 @@ def check_tiny_unet():
 
 
 # ---------------------------------------------------------------------------
+# shared by the full-width phases
+# ---------------------------------------------------------------------------
+
+def kernel_counters():
+    from osmosis_tpu_torch.ops import group_norm as G
+    from osmosis_tpu_torch.ops import upsample as U
+
+    return {"upsample_nearest_2x": U.upsample_nearest_2x_kernel,
+            "box_sum_2x": U.box_sum_2x_kernel,
+            "group_norm_forward": G.group_norm_forward,
+            "group_norm_backward": G.group_norm_backward}
+
+
+def zero_counts():
+    from osmosis_tpu_torch.ops import group_norm as G
+
+    for fn in kernel_counters().values():
+        fn.launches = 0
+    G.group_norm_forward.kernel_launches = G.group_norm_backward.kernel_launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+def check_counts(what, got, expected):
+    for name, n in expected.items():
+        if got[name] != n:
+            raise AssertionError(f"{what}: {name} launched {got[name]} times, expected {n}")
+
+
+def write_preset(workdir, preset, checkpoint, **diffusion):
+    """A preset with the seeded random-init checkpoint, one image of
+    data/underwater and the run dir under ``workdir``; returns (path, config)."""
+    import yaml
+
+    from osmosis_tpu_torch.config import load_yaml
+
+    cfg = load_yaml(os.path.join(ROOT, "configs", preset))
+    cfg["unet_model"]["model_path"] = checkpoint
+    if "data" in cfg:
+        cfg["data"]["root"] = os.path.join(ROOT, "data", "underwater")
+        cfg["data"]["stop_after"] = 1
+    cfg["diffusion"].update(diffusion)
+    cfg["save_dir"] = os.path.join(workdir, "results")
+    path = os.path.join(workdir, preset)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path, cfg
+
+
+def check_run_dir(out, files):
+    for rel in files:
+        if not os.path.exists(os.path.join(out, rel)):
+            raise AssertionError(f"run dir {out} lacks {rel}")
+    with open(os.path.join(out, "progress.json")) as f:
+        return json.loads(f.readline())
+
+
+def time_unet(model, x, tt, peak_flops, what):
+    """A UNet forward and forward + x-pullback at (x, tt): the time per call by
+    CUDA events over back-to-back calls (what the guided loop sees; where the
+    host launches slower than the card runs, the host's time), the device's
+    kernel time from ``torch.profiler``, and the work, counted by PyTorch from
+    the shapes of the convolutions and matrix products that ran."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from osmosis_tpu_torch.tools.unet_profile import profile_pass
+    from osmosis_tpu_torch.utils.timing import cuda_time_ms
+
+    x = x.detach().requires_grad_(True)
+    y = model(x, tt)
+    (dx,) = torch.autograd.grad(y[..., :4], x, torch.ones_like(y[..., :4]))
+    if not (torch.isfinite(y).all() and torch.isfinite(dx).all()):
+        raise AssertionError(f"{what}: the UNet output or pullback is not finite")
+
+    def fwd_bwd():
+        yy = model(x, tt)
+        torch.autograd.grad(yy[..., :4], x, torch.ones_like(yy[..., :4]))
+
+    with FlopCounterMode(display=False) as fc:
+        yy = model(x, tt)
+    fwd_flop = fc.get_total_flops()
+    with FlopCounterMode(display=False) as fc:
+        torch.autograd.grad(yy[..., :4], x, torch.ones_like(yy[..., :4]))
+    bwd_flop = fc.get_total_flops()
+    out = dict(unet_fwd_flop=fwd_flop, unet_pullback_flop=bwd_flop)
+    for key, label, fn, work in (("unet_fwd", "forward", lambda: model(x, tt), fwd_flop),
+                                 ("unet_fwd_pullback", "forward + pullback", fwd_bwd,
+                                  fwd_flop + bwd_flop)):
+        ms = cuda_time_ms(fn, iters=5)
+        dev_ms, _, host = profile_pass(fn)
+        out.update({f"{key}_ms": ms, f"{key}_device_ms": dev_ms,
+                    f"{key}_host_ms_profiled": sum(host.values())})
+        log(f"  {what}, {label}: {ms:.1f} ms a call by CUDA events ({work / ms / 1e9:.1f} TFLOP/s), {dev_ms:.1f} ms "
+            f"of device kernels ({work / dev_ms / 1e9:.1f} TFLOP/s, peak {peak_flops / 1e12:.0f}); "
+            f"host {sum(host.values()):.1f} ms a call with the profiler on")
+    log(f"  {what}: UNet output {tuple(y.shape)} and pullback finite; work forward "
+        f"{fwd_flop / 1e12:.3f} TFLOP, x-pullback {bwd_flop / 1e12:.3f} TFLOP")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the main path at full width
 # ---------------------------------------------------------------------------
 
+RESTORE_FILES = ("configurations.txt", "log.txt", "progress.json",
+                 *(os.path.join("single_images", d, "uw_0.png")
+                   for d in ("input", "rgb", "depth_color", "depth_raw")))
+
+
 def run_main_path(workdir):
     import torch
-    import yaml
 
     from osmosis_tpu_torch.config import load_yaml
     from osmosis_tpu_torch.models.convert import init_unet
     from osmosis_tpu_torch.models.unet import unet_config_from_yaml
     from osmosis_tpu_torch.ops import group_norm as G
-    from osmosis_tpu_torch.ops import upsample as U
     from osmosis_tpu_torch.pipelines.restore import run_restoration
-    from osmosis_tpu_torch.utils.timing import cuda_time_ms
 
     cfg_yaml = load_yaml(os.path.join(ROOT, "configs", "osmosis_sample_config.yaml"))
     ucfg = unet_config_from_yaml(cfg_yaml["unet_model"])
@@ -403,28 +555,15 @@ def run_main_path(workdir):
     log(f"  seeded random-init checkpoint: {n_params / 1e6:.1f}M params, "
         f"{time.perf_counter() - t0:.1f} s")
 
-    cfg_yaml["unet_model"]["model_path"] = pt
-    cfg_yaml["data"]["root"] = os.path.join(ROOT, "data", "underwater")
-    cfg_yaml["data"]["stop_after"] = 1
-    cfg_yaml["diffusion"]["timestep_respacing"] = STEPS
-    cfg_yaml["save_dir"] = os.path.join(workdir, "results")
-    cfg_path = os.path.join(workdir, "preset.yaml")
-    with open(cfg_path, "w") as f:
-        yaml.safe_dump(cfg_yaml, f)
-
-    counters = {"upsample_nearest_2x": U.upsample_nearest_2x_kernel,
-                "box_sum_2x": U.box_sum_2x_kernel,
-                "group_norm_forward": G.group_norm_forward,
-                "group_norm_backward": G.group_norm_backward}
+    cfg_path, cfg_yaml = write_preset(workdir, "osmosis_sample_config.yaml", pt,
+                                      timestep_respacing=STEPS)
     torch.cuda.reset_peak_memory_stats()
-    for fn in counters.values():
-        fn.launches = 0
-    G.group_norm_forward.kernel_launches = G.group_norm_backward.kernel_launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     out = run_restoration(cfg_path, device="cuda:0")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_counts()
     gn_kernels = {"group_norm_forward": G.group_norm_forward.kernel_launches,
                   "group_norm_backward": G.group_norm_backward.kernel_launches}
     peak = torch.cuda.max_memory_allocated()
@@ -432,14 +571,7 @@ def run_main_path(workdir):
     log(f"  launches on the main path: {launches}; GroupNorm device kernels: {gn_kernels}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the main path was never launched: {launches}")
-
-    for rel in ("configurations.txt", "log.txt", "progress.json",
-                *(os.path.join("single_images", d, "uw_0.png")
-                  for d in ("input", "rgb", "depth_color", "depth_raw"))):
-        if not os.path.exists(os.path.join(out, rel)):
-            raise AssertionError(f"run dir lacks {rel}")
-    with open(os.path.join(out, "progress.json")) as f:
-        row = json.loads(f.readline())
+    row = check_run_dir(out, RESTORE_FILES)
     log(f"  chain_finite: {row['chain_finite']} (random weights at guidance scale 7 may "
         f"diverge), final_loss {row['final_loss']}, chain {row['sample_seconds']:.2f} s")
 
@@ -450,40 +582,12 @@ def run_main_path(workdir):
     model = load_unet(pt, ucfg, "cuda")
     t_first = float(make_schedule("linear", 1000, STEPS).model_timesteps()[-1])
     gen = torch.Generator(device="cuda").manual_seed(cfg_yaml["manual_seed"])
-    x = torch.randn((1, 256, 256, 4), generator=gen, device="cuda").requires_grad_(True)
-    tt = torch.full((1,), t_first, device="cuda")
-    y = model(x, tt)
-    (dx,) = torch.autograd.grad(y[..., :4], x, torch.ones_like(y[..., :4]))
-    if not (torch.isfinite(y).all() and torch.isfinite(dx).all()):
-        raise AssertionError("the first step's UNet output or pullback is not finite")
-    fwd_ms = cuda_time_ms(lambda: model(x, tt), iters=5)
-
-    def fwd_bwd():
-        yy = model(x, tt)
-        torch.autograd.grad(yy[..., :4], x, torch.ones_like(yy[..., :4]))
-
-    fwd_bwd_ms = cuda_time_ms(fwd_bwd, iters=5)
-    log(f"  first step: UNet output {tuple(y.shape)} and pullback finite; forward "
-        f"{fwd_ms:.1f} ms, forward + pullback {fwd_bwd_ms:.1f} ms")
-
-    # the work of one guided step's UNet passes, counted by PyTorch from the
-    # shapes of the convolutions and matrix products that ran
-    from torch.utils.flop_counter import FlopCounterMode
-
-    with FlopCounterMode(display=False) as fc:
-        yy = model(x, tt)
-    fwd_flop = fc.get_total_flops()
-    with FlopCounterMode(display=False) as fc:
-        torch.autograd.grad(yy[..., :4], x, torch.ones_like(yy[..., :4]))
-    bwd_flop = fc.get_total_flops()
-    log(f"  UNet work: forward {fwd_flop / 1e12:.3f} TFLOP, x-pullback {bwd_flop / 1e12:.3f} "
-        f"TFLOP; fp32 (TF32 off) at {fwd_flop / fwd_ms / 1e9:.1f} TFLOP/s forward, "
-        f"{(fwd_flop + bwd_flop) / fwd_bwd_ms / 1e9:.1f} TFLOP/s forward + pullback "
-        f"(fp32 peak {FP32_FLOPS / 1e12:.0f})")
-    return dict(launches=launches, gn_kernel_launches=gn_kernels, peak_bytes=peak, wall_s=wall, run=row,
-                unet_fwd_ms=fwd_ms, unet_fwd_pullback_ms=fwd_bwd_ms,
-                unet_fwd_flop=fwd_flop, unet_pullback_flop=bwd_flop,
-                seconds_per_step=row["sample_seconds"] / STEPS, n_params=n_params)
+    x = torch.randn((1, 256, 256, 4), generator=gen, device="cuda")
+    unet = time_unet(model, x, torch.full((1,), t_first, device="cuda"), FP32_FLOPS,
+                     "first step, fp32 (TF32 off)")
+    return dict(launches=launches, gn_kernel_launches=gn_kernels, peak_bytes=peak, wall_s=wall,
+                run=row, seconds_per_step=row["sample_seconds"] / STEPS, n_params=n_params,
+                checkpoint=pt, **unet)
 
 
 def time_guided_steps(workdir, n_steps=5):
@@ -527,13 +631,18 @@ def time_guided_steps(workdir, n_steps=5):
     return s, device_busy_share(chain, n_steps)
 
 
-def device_busy_share(chain, n_steps):
+def device_busy_share(chain, n_steps, what="warm guided steps"):
     """Kernel time on the device over the wall time of one warm chain of
     ``n_steps`` guided steps, from torch.profiler (the profiler's own cost is
     in the wall time). None where the profiler shows no CUDA time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chain()
+    torch.cuda.synchronize()
+    wall_off = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -548,15 +657,180 @@ def device_busy_share(chain, n_steps):
             dev_us += us
             gn_us += us if "gn_kernel" in e.key else 0.0
     if dev_us <= 0:
-        log("  device busy share over a warm guided step: not measured (no CUDA time in the "
-            "profile)")
+        log(f"  device busy share over {what}: not measured (no CUDA time in the profile)")
         return None
     share = dev_us / 1e6 / wall
-    log(f"  device busy share over {n_steps} warm guided steps (torch.profiler): {share:.3f} "
+    log(f"  device busy share over {n_steps} {what} (torch.profiler): {share:.3f} "
         f"({dev_us / 1e3 / n_steps:.1f} ms of kernels per step over {wall * 1e3 / n_steps:.1f} "
-        f"ms wall, profiler on); GroupNorm kernels {gn_us / 1e3 / n_steps:.2f} ms per step")
+        f"ms wall, profiler on); GroupNorm kernels {gn_us / 1e3 / n_steps:.2f} ms per step; "
+        f"the same kernel time over the unprofiled wall of {wall_off * 1e3 / n_steps:.1f} ms "
+        f"a step: {dev_us / 1e6 / wall_off:.3f}")
     return dict(busy_share=share, device_ms_per_step=dev_us / 1e3 / n_steps,
-                wall_ms_per_step=wall * 1e3 / n_steps, gn_ms_per_step=gn_us / 1e3 / n_steps)
+                wall_ms_per_step=wall * 1e3 / n_steps, gn_ms_per_step=gn_us / 1e3 / n_steps,
+                unprofiled_wall_ms_per_step=wall_off * 1e3 / n_steps,
+                busy_share_unprofiled_wall=dev_us / 1e6 / wall_off)
+
+
+# ---------------------------------------------------------------------------
+# phases 6-7: the bf16 fast path (the hybrid preset) at full width
+# ---------------------------------------------------------------------------
+
+def run_bf16_hybrid(workdir, checkpoint, gn_sites, ups, pools):
+    """The hybrid preset (bf16 torso, x_prev every k-th step, x0 between)
+    through ``run_restoration`` with ddim20, launch counts asserted per step
+    kind. Returns the phase's numbers and the model ``run_restoration`` loaded."""
+    import torch
+
+    import osmosis_tpu_torch.pipelines.restore as R
+
+    path, cfg = write_preset(workdir, "osmosis_sample_hybrid_config.yaml", checkpoint,
+                             timestep_respacing=f"ddim{STEPS}")
+    k = int(cfg["conditioning"]["params"]["x_prev_every"])
+    full = len(range(0, STEPS, k))  # x_prev steps: chain positions 0, k, 2k, ...
+    loaded = []
+    load_unet = R.load_unet
+    R.load_unet = lambda *a, **kw: loaded.append(load_unet(*a, **kw)) or loaded[-1]
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = R.run_restoration(path, device="cuda:0")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        R.load_unet = load_unet
+    peak = torch.cuda.max_memory_allocated()
+    expected = {"group_norm_forward": len(gn_sites) * STEPS,
+                "group_norm_backward": len(gn_sites) * full,
+                "upsample_nearest_2x": len(ups) * STEPS + len(pools) * full,
+                "box_sum_2x": len(pools) * STEPS + len(ups) * full}
+    log(f"  run_restoration: {wall:.1f} s; {STEPS} steps, {full} of them x_prev (k = {k}); "
+        f"launches {launches}")
+    check_counts("bf16 hybrid path", launches, expected)
+    model = loaded[0]
+    conv_dtype = model.input_blocks[0][0].weight.dtype
+    gn_dtype = model.out[0].weight.dtype
+    log(f"  loaded torso: conv weights {conv_dtype}, GroupNorm affines {gn_dtype}, "
+        f"output conv weights {model.out[2].weight.dtype} (computed in fp32)")
+    if conv_dtype != torch.bfloat16 or gn_dtype != torch.float32:
+        raise AssertionError("the hybrid preset did not load a bf16 torso with fp32 GroupNorm")
+    row = check_run_dir(out, RESTORE_FILES)
+    log(f"  chain_finite: {row['chain_finite']}, final_loss {row['final_loss']}, chain "
+        f"{row['sample_seconds']:.2f} s ({row['sample_seconds'] / STEPS * 1e3:.1f} ms a step); "
+        f"peak memory {peak / 2 ** 30:.2f} GiB")
+    return dict(launches=launches, expected=expected, k=k, full_steps=full, wall_s=wall,
+                run=row, peak_bytes=peak, seconds_per_step=row["sample_seconds"] / STEPS,
+                conv_dtype=str(conv_dtype), gn_dtype=str(gn_dtype)), model, cfg
+
+
+def time_bf16_steps(model, cfg, n_steps=4):
+    """Seconds per warm bf16 guided step, an x_prev chain and an x0 chain of
+    ``n_steps`` each, phi updated at every step; then the device's busy share
+    over a warm hybrid chain of 2k steps, and the bf16 UNet forward and
+    forward + pullback."""
+    import torch
+
+    from osmosis_tpu_torch.diffusion.guided import GuidanceConfig, guided_sample_loop
+    from osmosis_tpu_torch.diffusion.sampler import SamplerConfig
+    from osmosis_tpu_torch.diffusion.schedules import make_schedule
+    from osmosis_tpu_torch.guidance.operators import get_operator
+
+    op_kw = {k: v for k, v in cfg["measurement"]["operator"].items() if k != "name"}
+    op = get_operator(cfg["measurement"]["operator"]["name"], batch_size=1, **op_kw)
+    pattern = dict(cfg["sample_pattern"], update_start=1.0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((1, 256, 256, 4), generator=gen, device="cuda")
+    y = torch.rand((1, 256, 256, 3), generator=gen, device="cuda") * 2 - 1
+    params = cfg["conditioning"]["params"]
+
+    def make_chain(n, **change):
+        gcfg = GuidanceConfig.from_config("osmosis", dict(params, **change), pattern,
+                                          cfg["aux_loss"])
+        sch = make_schedule("linear", 1000, str(n))
+        return lambda: guided_sample_loop(model, sch, x, y, op, gcfg, SamplerConfig(),
+                                          sample_pattern=pattern, generator=gen)
+
+    out = {}
+    for kind, change in (("x_prev", dict(x_prev_every=1)),
+                         ("x0", dict(x_prev_every=1, gradient_x_prev=False))):
+        chain = make_chain(n_steps, **change)
+        chain()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chain()
+        torch.cuda.synchronize()
+        out[f"{kind}_seconds_per_step"] = (time.perf_counter() - t0) / n_steps
+        log(f"  warm bf16 {kind} step (n_iter {params.get('n_iter', pattern['n_iter'])}, phi "
+            f"updated every step): {out[f'{kind}_seconds_per_step'] * 1e3:.1f} ms")
+    k = int(params["x_prev_every"])
+    hybrid = make_chain(2 * k)
+    hybrid()
+    out["busy"] = device_busy_share(hybrid, 2 * k, f"warm bf16 hybrid steps (k = {k})")
+    t_first = float(make_schedule("linear", 1000, STEPS).model_timesteps()[-1])
+    out.update(time_unet(model, x, torch.full((1,), t_first, device="cuda"), BF16_FLOPS,
+                         "bf16 torso"))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the RGBD prior sampler; phase 9: rgb_guidance
+# ---------------------------------------------------------------------------
+
+def run_prior(workdir, checkpoint, gn_sites, ups, pools, steps=20):
+    """RGBD_sample_config.yaml through ``run_prior_sampling`` at full width,
+    fp32, one image, the last ``steps`` steps: forwards only, so no K4."""
+    import yaml
+
+    from osmosis_tpu_torch.pipelines.prior import run_prior_sampling
+
+    path, cfg = write_preset(workdir, "RGBD_sample_config.yaml", checkpoint,
+                             timestep_respacing=steps)
+    cfg["number_of_images"] = 1
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    zero_counts()
+    t0 = time.perf_counter()
+    out = run_prior_sampling(path, device="cuda:0")
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    log(f"  run_prior_sampling: {wall:.1f} s; launches {launches}")
+    check_counts("prior sampler", launches, {
+        "group_norm_forward": len(gn_sites) * steps, "group_norm_backward": 0,
+        "upsample_nearest_2x": len(ups) * steps, "box_sum_2x": len(pools) * steps})
+    row = check_run_dir(out, ("configurations.txt", "log.txt", "progress.json",
+                              "single_images/rgb/image_0.png",
+                              "single_images/depth_color/image_0.png",
+                              "grid_results/image_0.png", "grid_results/image_0_process.png"))
+    s = row["sample_seconds"] / steps
+    log(f"  prior: {steps} steps in {row['sample_seconds']:.2f} s, {s * 1e3:.1f} ms a step "
+        f"(fp32, TF32 off, forward only); sample finite: {row['sample_finite']}")
+    return dict(launches=launches, wall_s=wall, run=row, seconds_per_step=s)
+
+
+def run_rgb_guidance(workdir, checkpoint, gn_sites, ups, pools, steps=10):
+    """rgb_guidance_sample_config.yaml ('ps', fp32) through ``run_restoration``:
+    one image of data/underwater, ``steps`` steps, the UNet pullback at each."""
+    from osmosis_tpu_torch.pipelines.restore import run_restoration
+
+    path, _ = write_preset(workdir, "rgb_guidance_sample_config.yaml", checkpoint,
+                           timestep_respacing=steps)
+    zero_counts()
+    t0 = time.perf_counter()
+    out = run_restoration(path, device="cuda:0")
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    log(f"  run_restoration (rgb_guidance): {wall:.1f} s; launches {launches}")
+    check_counts("rgb_guidance", launches, {
+        "group_norm_forward": len(gn_sites) * steps, "group_norm_backward": len(gn_sites) * steps,
+        "upsample_nearest_2x": (len(ups) + len(pools)) * steps,
+        "box_sum_2x": (len(ups) + len(pools)) * steps})
+    row = check_run_dir(out, RESTORE_FILES + ("grid_results/uw_0.png",
+                                              "grid_results/uw_0_process.png"))
+    log(f"  rgb_guidance run dir complete; chain_finite {row['chain_finite']}, "
+        f"{row['sample_seconds'] / steps * 1e3:.1f} ms a step")
+    return dict(launches=launches, wall_s=wall, run=row,
+                seconds_per_step=row["sample_seconds"] / steps)
 
 
 def main():
@@ -575,50 +849,65 @@ def main():
     sys.path.insert(0, ROOT)
     import tempfile
 
+    from osmosis_tpu_torch.config import load_yaml
     from osmosis_tpu_torch.models.unet import UNetConfig
     from osmosis_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/5] device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
+    log(f"[1/9] device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     built = _build.build_all()
-    log(f"[2/5] built CUDA kernels {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/9] built CUDA kernels {sorted(built)} in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/5] kernels against their plain versions at the main path's shapes")
+    log("[3/9] kernels against their plain versions at the main path's shapes")
     gn_sites, ups, pools = main_path_sites(UNetConfig())
+    k_hybrid = int(load_yaml(os.path.join(ROOT, "configs", "osmosis_sample_hybrid_config.yaml"))[
+        "conditioning"]["params"]["x_prev_every"])
     report = {}
-    rows = check_resample_kernels(ups, pools, report)
-    rows += check_norm_kernels(gn_sites, report)
+    rows = check_resample_kernels(ups, pools, report, k_hybrid)
+    rows += check_norm_kernels(gn_sites, report, k_hybrid)
 
-    log("[4/5] tiny UNet: card (kernels) against CPU (plain versions), TF32 off")
+    log("[4/9] tiny UNet: card (kernels) against CPU (plain versions), TF32 off")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     tiny = check_tiny_unet()
 
-    log(f"[5/5] main path at full width: preset, {STEPS} respaced steps, one image")
+    log(f"[5/9] main path at full width: preset, {STEPS} respaced steps, one image")
     build_dir = os.path.join(ROOT, "osmosis_tpu_torch", "_build")
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
         main_path = run_main_path(workdir)
         main_path["warm_seconds_per_step"], main_path["busy"] = time_guided_steps(workdir)
-    log(f"  seconds per guided step: {main_path['seconds_per_step']:.4f} over the main path's "
-        f"{STEPS}-step chain, {main_path['warm_seconds_per_step']:.4f} warm; peak memory "
-        f"{main_path['peak_bytes'] / 2 ** 30:.2f} GiB (max_memory_allocated over the main path); "
-        f"{smi}")
+        log(f"  seconds per guided step: {main_path['seconds_per_step']:.4f} over the main "
+            f"path's {STEPS}-step chain, {main_path['warm_seconds_per_step']:.4f} warm; peak "
+            f"memory {main_path['peak_bytes'] / 2 ** 30:.2f} GiB (max_memory_allocated over the "
+            f"main path); {smi}")
+        check_counts("main path", main_path["launches"], {
+            "upsample_nearest_2x": (len(ups) + len(pools)) * STEPS,
+            "box_sum_2x": (len(ups) + len(pools)) * STEPS,
+            "group_norm_forward": len(gn_sites) * STEPS,
+            "group_norm_backward": len(gn_sites) * STEPS})
+        ckpt = main_path["checkpoint"]
 
-    per_step_expected = {
-        "upsample_nearest_2x": 2 * len(ups), "box_sum_2x": 2 * len(pools),
-        "group_norm_forward": len(gn_sites), "group_norm_backward": len(gn_sites),
-    }
-    for name, n in per_step_expected.items():
-        got = main_path["launches"][name]
-        if got != n * STEPS:
-            raise AssertionError(f"{name}: {got} launches on the main path, expected "
-                                 f"{n} per step x {STEPS} steps")
+        log(f"[6/9] bf16 fast path at full width: the hybrid preset, ddim{STEPS}, one image")
+        hybrid, model, hybrid_cfg = run_bf16_hybrid(workdir, ckpt, gn_sites, ups, pools)
+        log("[7/9] bf16 timing by step kind, busy share, UNet rate")
+        hybrid.update(time_bf16_steps(model, hybrid_cfg))
+        del model
+        log(f"  bf16 seconds per warm step: x_prev {hybrid['x_prev_seconds_per_step']:.4f}, x0 "
+            f"{hybrid['x0_seconds_per_step']:.4f}; {smi}")
+
+        log(f"[8/9] RGBD prior sampler at full width: {STEPS} steps, one image, fp32")
+        prior = run_prior(workdir, ckpt, gn_sites, ups, pools, steps=STEPS)
+        log(f"  seconds per prior step: {prior['seconds_per_step']:.4f}; {smi}")
+
+        log("[9/9] rgb_guidance at full width: 10 steps, one image, fp32")
+        rgb = run_rgb_guidance(workdir, ckpt, gn_sites, ups, pools, steps=10)
+
     meta = {
         "upsample_nearest_2x": ("cuda", "osmosis_tpu_torch/ops/csrc/upsample.cu",
                                 "osmosis_tpu/ops/upsample.py:55"),
@@ -632,15 +921,24 @@ def main():
     kernels = []
     for name, (route, source, replaces) in meta.items():
         agg = report[name]
+        hyb = report[name + "_bf16_hybrid"]
         kernels.append(dict(name=name, route=route, source=source, replaces=replaces,
                             launches=main_path["launches"][name],
                             max_abs_err=agg["max_abs_err"], ms=agg["ms"],
                             plain_ms=agg["plain_ms"], bound_ms=agg["bound_ms"],
-                            bound_by="bytes", library_ms=agg["library_ms"]))
+                            bound_by="bytes", library_ms=agg["library_ms"],
+                            bf16_hybrid_launches=hybrid["launches"][name],
+                            bf16_hybrid_max_abs_err=hyb["max_abs_err"],
+                            bf16_hybrid_ms_per_step=hyb["ms"],
+                            bf16_hybrid_eager_ms_per_step=hyb["eager_ms"],
+                            bf16_hybrid_plain_ms_per_step=hyb["plain_ms"],
+                            bf16_hybrid_bound_ms_per_step=hyb["bound_ms"],
+                            bf16_hybrid_library_ms_per_step=hyb["library_ms"]))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_report.json"), "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, kernels=kernels, rows=rows, tiny_unet=tiny,
-                       main_path=main_path, seconds=time.perf_counter() - t_start), f, indent=1)
+                       main_path=main_path, bf16_hybrid=hybrid, prior=prior, rgb_guidance=rgb,
+                       seconds=time.perf_counter() - t_start), f, indent=1)
     log(f"  per-shape rows in results/chip_smoke_report.json; "
         f"total {time.perf_counter() - t_start:.1f} s")
     log("  kernel ms / plain_ms / bound_ms / library_ms: fp32 device times (ten calls a "
@@ -649,6 +947,13 @@ def main():
         log(f"    {k['name']}: {k['ms']:.3f} ms (eager calls {report[k['name']]['eager_ms']:.3f})"
             f" plain {k['plain_ms']:.3f} library {k['library_ms']:.3f} bound "
             f"{k['bound_ms']:.3f} launches {k['launches']}")
+    log(f"  bf16 hybrid path (k = {k_hybrid}), device ms per step on average (kernel / eager / "
+        "plain / library / bound), launches over its run:")
+    for k in kernels:
+        log(f"    {k['name']}: {k['bf16_hybrid_ms_per_step']:.3f} / "
+            f"{k['bf16_hybrid_eager_ms_per_step']:.3f} / "
+            f"{k['bf16_hybrid_plain_ms_per_step']:.3f} / {k['bf16_hybrid_library_ms_per_step']:.3f}"
+            f" / {k['bf16_hybrid_bound_ms_per_step']:.3f}; launches {k['bf16_hybrid_launches']}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

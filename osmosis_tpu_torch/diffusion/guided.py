@@ -1,23 +1,33 @@
-"""Guided (osmosis) sampling: the reverse chain with physics guidance (port of
-``osmosis_tpu/diffusion/guided.py``; reference gaussian_diffusion.py:179-340
-and condition_methods.py:61-231).
+"""Guided (osmosis / DPS) sampling: the reverse chain with physics guidance
+(port of ``osmosis_tpu/diffusion/guided.py``; reference
+gaussian_diffusion.py:179-340 and condition_methods.py:35-251).
 
-Each step of the main path (``osmosis_guided``, guided.py:372-448) runs:
-  1. the UNet forward on x with autograd on (weights frozen), giving x0-hat
-     and the learned variance;
-  2. ``n_iter - 1`` phi-only optimizer steps against a detached x0-hat,
+An osmosis step (``osmosis_guided``, guided.py:372-448) runs:
+  1. the UNet forward on x, giving x0-hat and the learned variance; with
+     autograd on (weights frozen) only where the step takes the x_prev
+     gradient;
+  2. the phi warm phase's extra phi-only steps where the pattern has one,
+     then ``n_iter - 1`` phi-only optimizer steps against a detached x0-hat,
      skipped where the pcgs pattern freezes phi;
-  3. the joint gradient of the guidance loss with respect to (x0-hat, phi),
-     the phi update (again only where phi is not frozen), and ONE pullback of
-     the x0-hat cotangent through the UNet to x, clipped to
-     ±``gradient_clip_value``;
+  3. the joint gradient of the guidance loss with respect to (x0-hat, phi)
+     and the phi update (again only where phi is not frozen). An x_prev step
+     pulls the x0-hat cotangent back through the UNet to x ONCE and clips it
+     to ±``gradient_clip_value``; an x0 step guides with the x0-hat gradient
+     itself, never clipped;
   4. ``x_{t-1} = mean - scale·grad``, then noise after guidance,
-     ``x + [t>0]·exp(½·logvar)·z``.
+     ``x + [t>0]·exp(½·logvar)·z``. The ``ltsp`` sampler replaces this with
+     a PLMS4 / DDIM(eta=0) diffusion substep on eps, then the guidance.
+
+Steps outside the guidance window run the plain posterior update. A 'ps'
+(DPS) step draws its noise first (DDPM or DDIM), then guides with the
+gradient of ``‖y − x0-hat‖`` (gaussian) or its poisson form. The hybrid
+schedule (``x_prev_every = k``) takes the x_prev gradient at chain positions
+0, k, 2k, ... and the x0 gradient between. With ``local_M > 1`` a step
+repeats ``alternate_len[t]`` times at the same t.
 
 The pcgs masks are numpy arrays read on the host, so no step waits on the
 device for a branch. Traces (per-step loss, phi, aux losses, x0-hat std)
-stay on the device until the chain ends. Configurations outside this path
-raise ``NotImplementedError`` naming the ROADMAP item that brings them.
+stay on the device until the chain ends.
 """
 
 from __future__ import annotations
@@ -35,10 +45,14 @@ from ..guidance.phi_optim import make_phi_optimizer
 from ..guidance.schedule_masks import pattern_masks
 from ..registry import CONDITIONERS
 from .sampler import (
+    ModelFn,
     SamplerConfig,
+    ddim_step,
+    ddpm_noise_step,
     device_constants,
     make_slot_map,
     model_log_variance,
+    p_mean_variance,
     posterior_mean,
     predict_xstart,
     process_xstart,
@@ -48,13 +62,12 @@ from .sampler import (
 )
 from .schedules import DiffusionSchedule
 
-ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # (x NHWC, t [B]) -> out
-NoiseFn = Callable[[int, Tuple[int, ...]], torch.Tensor]  # (t, shape) -> z
+# (t, shape) -> z, or (t, shape, i) -> z for the i-th repeat (i > 0) of a
+# step under local_M > 1 alternation
+NoiseFn = Callable[..., torch.Tensor]
 
 CONDITIONERS.register("osmosis")("osmosis")
 CONDITIONERS.register("ps")("ps")
-
-_MODES_ITEM = "ROADMAP.md queue 1, item 2 (guidance modes)"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +125,8 @@ class GuidedResult:
     x0_std_trace: torch.Tensor      # [T, B] x0-hat amplitude
     opt_state: dict                 # final phi-optimizer state (global_N warm starts)
     x0_snapshots: Optional[torch.Tensor] = None  # [K, B, H, W, 4]
+    # ltsp only: the final PLMS eps history, most recent first
+    eps_hist: Optional[Tuple[torch.Tensor, ...]] = None
     snapshot_steps: Tuple[int, ...] = ()
 
     @property
@@ -121,21 +136,42 @@ class GuidedResult:
         return {"steps": self.snapshot_steps, "x0_hat": self.x0_snapshots}
 
 
-def _check_supported(gcfg: GuidanceConfig, scfg: SamplerConfig, masks: Dict[str, np.ndarray]):
-    unsupported = [
-        (gcfg.method != "osmosis", f"conditioning method '{gcfg.method}'"),
-        (not gcfg.gradient_x_prev, "the x0-hat gradient mode (gradient_x_prev: False)"),
-        (gcfg.x_prev_every > 1, "the hybrid gradient schedule (x_prev_every > 1)"),
-        (scfg.sampler != "ddpm", f"sampler '{scfg.sampler}'"),
-        (bool((masks["alternate_len"] != 1).any()), "local_M > 1 alternation"),
-        (bool(masks["phi_warmup"].any()), "the phi warm phase (phi_warmup_iters)"),
-        (not bool(masks["guidance"].all()), "an unguided window (start/stop_guidance)"),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet: {_MODES_ITEM}")
+def _check_config(gcfg: GuidanceConfig, scfg: SamplerConfig, T: int, never_alternates: bool):
+    """The JAX loop's refusals (guided.py:248-259, :345-350, :666-671)."""
+    if gcfg.x_prev_every > 1 and not gcfg.gradient_x_prev and gcfg.method != "ps":
+        raise ValueError(
+            "x_prev_every > 1 requires gradient_x_prev: True — with "
+            "gradient_x_prev: False every step already uses the x0 gradient")
+    if _hybrid(gcfg) and gcfg.x_prev_every >= T:
+        raise ValueError(
+            f"x_prev_every={gcfg.x_prev_every} must be < the chain length ({T} steps)")
+    if scfg.sampler == "ltsp":
+        if gcfg.method != "osmosis":
+            raise NotImplementedError("ltsp splitting implements the 'osmosis' path")
+        if not never_alternates:
+            raise NotImplementedError("ltsp requires local_M == 1 patterns")
+    if gcfg.method == "ps" and gcfg.noiser_name not in ("gaussian", "poisson"):
+        # 'clean' etc. raise in the reference too (condition_methods.py:50)
+        raise NotImplementedError(
+            f"'ps' conditioning does not support noiser '{gcfg.noiser_name}'")
     if gcfg.loss_function not in ("norm", "mse"):
         raise NotImplementedError(gcfg.loss_function)
+
+
+def _hybrid(gcfg: GuidanceConfig) -> bool:
+    return gcfg.x_prev_every > 1 and (gcfg.gradient_x_prev or gcfg.method == "ps")
+
+
+def _plms_coeffs(T: int) -> np.ndarray:
+    """Adams-Bashforth coefficients on eps, by timestep: AB1..AB3 warm-up,
+    then AB4 (guided.py:351-361)."""
+    ab = np.zeros((T, 4), np.float32)
+    for t in range(T):
+        j = T - 1 - t  # step index along the reverse chain
+        ab[t] = ([1.0, 0.0, 0.0, 0.0] if j == 0 else [1.5, -0.5, 0.0, 0.0] if j == 1
+                 else [23 / 12, -16 / 12, 5 / 12, 0.0] if j == 2
+                 else [55 / 24, -59 / 24, 37 / 24, -9 / 24])
+    return ab
 
 
 def _make_weight_fn(gcfg: GuidanceConfig):
@@ -164,30 +200,42 @@ def guided_sample_loop(
     opt_state_init: Optional[dict] = None,
     generator: Optional[torch.Generator] = None,
     noise_fn: Optional[NoiseFn] = None,
+    eps_hist_init: Optional[Tuple[torch.Tensor, ...]] = None,
 ) -> GuidedResult:
     """Run the guided reverse process over the whole chain. Tensors NHWC.
 
     ``deterministic=True`` adds no noise (the chain follows posterior means).
     Otherwise each step's noise is ``noise_fn(t, shape)`` when given (tests
-    feed the JAX package's draws through it), else a standard normal draw
-    from ``generator``. ``phi_init``/``opt_state_init`` warm-start phi and its
-    optimizer state (global_N > 1 restarts).
+    feed the JAX package's ``normal(fold_in(fold_in(key, t), i))`` draws
+    through it; the i-th repeat of a step under local_M > 1 alternation calls
+    ``noise_fn(t, shape, i)`` for i > 0), else a standard normal draw from
+    ``generator``. ``phi_init``/``opt_state_init`` warm-start phi and its
+    optimizer state (global_N > 1 restarts); ``eps_hist_init`` the ltsp
+    sampler's eps history.
     """
     T = schedule.num_timesteps
     B = x_init.shape[0]
     device = x_init.device
     masks = pattern_masks(sample_pattern, T)
-    _check_supported(gcfg, scfg, masks)
+    always_guided = bool(masks["guidance"].all())
+    never_alternates = bool((masks["alternate_len"] == 1).all())
+    _check_config(gcfg, scfg, T, never_alternates)
+    ps = gcfg.method == "ps"
+    ltsp = scfg.sampler == "ltsp"
     if not deterministic and noise_fn is None:
         if generator is None:
             raise ValueError("a stochastic chain needs a generator or a noise_fn")
 
-        def noise_fn(t, shape):
+        def noise_fn(t, shape, i=0):
             return torch.randn(shape, generator=generator, device=device, dtype=x_init.dtype)
+
+    def draw(t, shape, i):
+        return noise_fn(t, shape) if i == 0 else noise_fn(t, shape, i)
 
     consts = device_constants(schedule, device)
     aux_fn = make_aux_loss_fn(dict(gcfg.aux_loss))
     aux_names = [k for k, _ in gcfg.aux_loss]
+    zero_aux = {k: torch.zeros((), device=device) for k in aux_names}
     weight_fn = _make_weight_fn(gcfg)
     scale = torch.tensor(gcfg.scale, dtype=torch.float32, device=device)
     scale = scale[0] if scale.numel() == 1 else scale.reshape(1, 1, 1, -1)
@@ -220,10 +268,117 @@ def guided_sample_loop(
         with torch.enable_grad():
             total, sep, aux = loss_terms(x0_leaf, leaves)
             wrt = ([x0_leaf] if wrt_x0 else []) + list(leaves.values())
-            gs = torch.autograd.grad(total, wrt)
+            gs = torch.autograd.grad(total, wrt) if wrt else ()
         g_x0 = gs[0] if wrt_x0 else None
         g_phi = dict(zip(leaves, gs[1:] if wrt_x0 else gs))
         return g_x0, g_phi, sep.detach(), {k: aux[k].detach() for k in aux_names}
+
+    def ps_loss_grad(x0):
+        """condition_methods.py:35-53: the loss and its x0-hat gradient."""
+        x0_leaf = x0.detach().requires_grad_(True)
+        with torch.enable_grad():
+            if gcfg.noiser_name == "gaussian":  # ‖y − A(x0[..., :3])‖
+                diff = (y - operator.forward({}, x0_leaf[..., 0:3])).float()
+                loss = torch.sqrt(torch.sum(diff ** 2))
+            else:  # poisson: over the FULL x0, no RGB slice (condition_methods.py:43-48)
+                diff = (y - operator.forward({}, x0_leaf)).float()
+                loss = torch.mean(torch.sqrt(torch.sum(diff ** 2)) / torch.abs(y.float()))
+            (g_x0,) = torch.autograd.grad(loss, x0_leaf)
+        return loss.detach(), g_x0
+
+    def unet_x0(x, tb, use_x_prev):
+        """x0-hat and the variance channels; with ``use_x_prev`` also the
+        autograd leaf x and the graph of x0-hat over it (the pullback)."""
+        xg = x.detach().requires_grad_(use_x_prev)
+        with torch.set_grad_enabled(use_x_prev):
+            eps, v = split_model_output(model_fn(xg, consts["model_timesteps"][tb]), x.shape[-1])
+            x0_graph = process_xstart(predict_xstart(xg, tb, eps, consts, scfg), scfg)
+        return xg, x0_graph, v.detach()
+
+    def pullback(xg, x0_graph, g_x0):
+        """The one pullback through the UNet: the cotangent of x0-hat alone,
+        i.e. a zero cotangent for the variance channels."""
+        (g_x,) = torch.autograd.grad(x0_graph, xg, g_x0)
+        return g_x
+
+    def osmosis_guided(x, phi_, st, t, tb, use_x_prev):
+        xg, x0_graph, v = unet_x0(x, tb, use_x_prev)
+        x0 = x0_graph.detach()
+        logvar = model_log_variance(v, tb, consts, scfg)
+        mean = posterior_mean(x0, x, tb, consts)
+        freeze = bool(masks["freeze_phi"][t])
+        # the phi warm phase, then the inner phi-only iterations
+        # (condition_methods.py:193-194)
+        n_inner = int(masks["phi_warmup"][t]) + (0 if freeze else gcfg.n_iter - 1)
+        for _ in range(n_inner):
+            _, g_phi, _, _ = grads(x0, phi_, wrt_x0=False)
+            phi_, st = opt.update(phi_, g_phi, st)
+        g_x0, g_phi, sep, aux_vec = grads(x0, phi_, wrt_x0=True)
+        if not freeze:
+            phi_, st = opt.update(phi_, g_phi, st)
+        if use_x_prev:
+            g_used = pullback(xg, x0_graph, g_x0)
+            if gcfg.gradient_clip:
+                g_used = torch.clamp(g_used, -gcfg.gradient_clip_value, gcfg.gradient_clip_value)
+        else:  # the x0-hat gradient, never clipped (condition_methods.py:227-229)
+            g_used = g_x0
+        guidance = scale * g_used
+        return mean - guidance, logvar, x0, guidance, phi_, st, sep, aux_vec
+
+    def plain_update(x, phi_, st, t, tb):
+        with torch.no_grad():
+            out = p_mean_variance(model_fn, x, tb, consts, scfg)
+        return (out["mean"], out["log_variance"], out["pred_xstart"], torch.zeros_like(x),
+                phi_, st, torch.zeros((B,), device=device), zero_aux)
+
+    def ps_step(x, t, tb, i, use_x_prev):
+        xg, x0_graph, v = unet_x0(x, tb, use_x_prev)
+        x0 = x0_graph.detach()
+        out = {"mean": posterior_mean(x0, x, tb, consts),
+               "log_variance": model_log_variance(v, tb, consts, scfg), "pred_xstart": x0}
+        # noise FIRST (p_sample, gaussian_diffusion.py:232-233,494-502)
+        if deterministic:
+            sample = out["mean"]
+        elif scfg.sampler == "ddim":
+            sample = ddim_step(x, out, tb, draw(t, tuple(x.shape), i), consts, scfg.ddim_eta)
+        else:
+            sample = ddpm_noise_step(out, tb, draw(t, tuple(x.shape), i))
+        loss, g_x0 = ps_loss_grad(x0)
+        g_used = pullback(xg, x0_graph, g_x0) if use_x_prev else g_x0
+        return sample - scale * g_used, x0, loss.expand(B)
+
+    if ltsp:
+        plms = torch.from_numpy(_plms_coeffs(T)).to(device)
+        if eps_hist_init is not None:
+            eps_hist = tuple(torch.as_tensor(e, device=device) for e in eps_hist_init)
+        else:
+            eps_hist = tuple(torch.zeros_like(x_init) for _ in range(3))
+
+    def one_iteration(x, phi_, st, t, tb, i, use_x_prev):
+        """One update at t: (x_next, phi, opt state, x0-hat, sep, aux, eps_t)."""
+        if ps:
+            x_next, x0, sep = ps_step(x, t, tb, i, use_x_prev)
+            return x_next, phi_, st, x0, sep, zero_aux, None
+        if always_guided or masks["guidance"][t]:
+            upd = osmosis_guided(x, phi_, st, t, tb, use_x_prev)
+        else:
+            upd = plain_update(x, phi_, st, t, tb)
+        x_t, logvar, x0, guidance, phi_, st, sep, aux_vec = upd
+        if ltsp:
+            # Lie-Trotter split: (a) the PLMS / DDIM(eta=0) diffusion substep
+            # on eps, (b) the first-order guidance substep
+            sra = consts["sqrt_recip_alphas_cumprod"][tb].reshape(-1, 1, 1, 1)
+            srm1 = consts["sqrt_recipm1_alphas_cumprod"][tb].reshape(-1, 1, 1, 1)
+            ab_prev = consts["alphas_cumprod_prev"][tb].reshape(-1, 1, 1, 1)
+            eps_t = (sra * x - x0) / srm1
+            eps_eff = torch.tensordot(plms[t], torch.stack((eps_t,) + eps_hist), dims=1)
+            x0_eff = sra * x - srm1 * eps_eff
+            x_diff = torch.sqrt(ab_prev) * x0_eff + torch.sqrt(1.0 - ab_prev) * eps_eff
+            return x_diff - guidance, phi_, st, x0, sep, aux_vec, eps_t
+        # noise AFTER guidance (gaussian_diffusion.py:266-268)
+        if not (deterministic or t == 0):
+            x_t = x_t + torch.exp(0.5 * logvar) * draw(t, tuple(x_t.shape), i)
+        return x_t, phi_, st, x0, sep, aux_vec, None
 
     if record_every is not None:
         rec_steps = record_steps_for(T, record_every, extra=(T - 1, 999))
@@ -233,40 +388,25 @@ def guided_sample_loop(
     else:
         rec_steps, slot_map, buf_x0 = (), None, None
 
+    # 'ps' always takes the x_prev gradient (condition_methods.py:40); the
+    # hybrid schedule takes it at chain positions 0, k, 2k, ... only: the JAX
+    # loop's [T // k, k] blocks, each starting with the full step, and the
+    # remainder block too
+    full_grad = ps or gcfg.gradient_x_prev
+    every = gcfg.x_prev_every if _hybrid(gcfg) else 1
     seps, phis, auxs, stds = [], [], [], []
     x = x_init.detach()
     x0 = torch.zeros_like(x)
-    for t in range(T - 1, -1, -1):
+    for s, t in enumerate(range(T - 1, -1, -1)):
         tb = torch.full((B,), t, dtype=torch.long, device=device)
-        freeze = bool(masks["freeze_phi"][t])
-        xg = x.requires_grad_(True)
-        with torch.enable_grad():
-            eps, v = split_model_output(model_fn(xg, consts["model_timesteps"][tb]), x.shape[-1])
-            x0_graph = process_xstart(predict_xstart(xg, tb, eps, consts, scfg), scfg)
-        x0 = x0_graph.detach()
-        logvar = model_log_variance(v.detach(), tb, consts, scfg)
-        mean = posterior_mean(x0, x.detach(), tb, consts)
-
-        if not freeze:  # inner phi-only iterations (condition_methods.py:193-194)
-            for _ in range(gcfg.n_iter - 1):
-                _, g_phi, _, _ = grads(x0, phi, wrt_x0=False)
-                phi, opt_state = opt.update(phi, g_phi, opt_state)
-
-        g_x0, g_phi, sep, aux_vec = grads(x0, phi, wrt_x0=True)
-        if not freeze:
-            phi, opt_state = opt.update(phi, g_phi, opt_state)
-
-        # the one pullback through the UNet: the cotangent of x0-hat alone,
-        # i.e. a zero cotangent for the variance channels
-        (g_x,) = torch.autograd.grad(x0_graph, xg, g_x0)
-        if gcfg.gradient_clip:
-            g_x = torch.clamp(g_x, -gcfg.gradient_clip_value, gcfg.gradient_clip_value)
-        x_t = mean - scale * g_x
-        if deterministic or t == 0:
-            x = x_t
-        else:  # noise after guidance (gaussian_diffusion.py:266-268)
-            x = x_t + torch.exp(0.5 * logvar) * noise_fn(t, tuple(x_t.shape))
-
+        use_x_prev = full_grad and s % every == 0
+        sep, aux_vec = torch.zeros((B,), device=device), zero_aux
+        for i in range(1 if never_alternates else int(masks["alternate_len"][t])):
+            x, phi, opt_state, x0, sep, aux_vec, eps_t = one_iteration(
+                x, phi, opt_state, t, tb, i, use_x_prev)
+            if ltsp:
+                eps_hist = (eps_t, eps_hist[0], eps_hist[1])
+        x = x.detach()
         if slot_map is not None:
             record_update(buf_x0, x0, int(slot_map[t]))
         seps.append(sep)
@@ -275,7 +415,7 @@ def guided_sample_loop(
         stds.append(x0.float().reshape(B, -1).std(dim=1, unbiased=False))
 
     return GuidedResult(
-        sample=x.detach(),
+        sample=x,
         pred_xstart=x0,
         phi=phi,
         sep_loss=torch.stack(seps),
@@ -284,5 +424,6 @@ def guided_sample_loop(
         x0_std_trace=torch.stack(stds),
         opt_state=opt_state,
         x0_snapshots=buf_x0,
+        eps_hist=eps_hist if ltsp else None,
         snapshot_steps=tuple(rec_steps),
     )

@@ -1,19 +1,27 @@
-"""Per-step diffusion arithmetic of the samplers (port of
-``osmosis_tpu/diffusion/sampler.py``): x0-hat prediction and processing, the
-posterior mean, the four variance types, the eps / variance split of the
-model output, and the x0-hat snapshot recording. All tensors are NHWC;
-per-timestep coefficients are gathered from the schedule's fp32 constants.
+"""The diffusion samplers (port of ``osmosis_tpu/diffusion/sampler.py``):
+x0-hat prediction and processing, the posterior mean, the four variance
+types, the eps / variance split of the model output, the DDPM and DDIM steps,
+snapshot recording, and :func:`sample_loop`, the unconditional reverse chain
+of the prior sampler. All tensors are NHWC; per-timestep coefficients are
+gathered from the schedule's fp32 constants.
+
+Noise comes from a ``noise_fn(t, shape)`` where the caller gives one (tests
+feed the JAX package's ``normal(fold_in(key, t))`` draws through it), else
+from a ``torch.Generator``, whose bits differ from ``jax.random``'s.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..registry import SAMPLERS
+
 Consts = Dict[str, torch.Tensor]
+ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]  # (x NHWC, t [B]) -> out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,6 +35,13 @@ class SamplerConfig:
     dynamic_threshold: bool = False
     clip_denoised: bool = False
     ddim_eta: float = 0.0
+
+
+SAMPLERS.register("ddpm")("ddpm")
+SAMPLERS.register("ddim")("ddim")
+# 'ltsp': Lie-Trotter splitting with a PLMS4 diffusion substep, for guided
+# sampling only (diffusion/guided.py)
+SAMPLERS.register("ltsp")("ltsp")
 
 
 def device_constants(schedule, device) -> Consts:
@@ -105,6 +120,39 @@ def split_model_output(model_output: torch.Tensor, x_channels: int):
     return model_output, model_output
 
 
+def p_mean_variance(model_fn: ModelFn, x: torch.Tensor, t: torch.Tensor, consts: Consts,
+                    cfg: SamplerConfig, timestep_offset: float = 0.0) -> Dict[str, torch.Tensor]:
+    """gaussian_diffusion.py:345-365. ``t`` is the respaced index [B]."""
+    model_output = model_fn(x, consts["model_timesteps"][t] + timestep_offset)
+    eps, var_values = split_model_output(model_output, x.shape[-1])
+    x0 = process_xstart(predict_xstart(x, t, eps, consts, cfg), cfg)
+    return {"mean": posterior_mean(x0, x, t, consts),
+            "log_variance": model_log_variance(var_values, t, consts, cfg),
+            "pred_xstart": x0}
+
+
+def _nonzero(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return (t > 0).to(like.dtype).reshape(-1, 1, 1, 1)
+
+
+def ddpm_noise_step(out: Dict[str, torch.Tensor], t: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """mean + exp(½·logvar)·z, no noise at t == 0 (gaussian_diffusion.py:494-502)."""
+    return out["mean"] + _nonzero(t, z) * torch.exp(0.5 * out["log_variance"]) * z
+
+
+def ddim_step(x: torch.Tensor, out: Dict[str, torch.Tensor], t: torch.Tensor, z: torch.Tensor,
+              consts: Consts, eta: float) -> torch.Tensor:
+    """DDIM eq. 12 (gaussian_diffusion.py:505-535)."""
+    x0 = out["pred_xstart"]
+    eps = (_g(consts, "sqrt_recip_alphas_cumprod", t) * x - x0) / _g(
+        consts, "sqrt_recipm1_alphas_cumprod", t)
+    ab = _g(consts, "alphas_cumprod", t)
+    ab_prev = _g(consts, "alphas_cumprod_prev", t)
+    sigma = eta * torch.sqrt((1 - ab_prev) / (1 - ab)) * torch.sqrt(1 - ab / ab_prev)
+    mean_pred = x0 * torch.sqrt(ab_prev) + torch.sqrt(1 - ab_prev - sigma ** 2) * eps
+    return mean_pred + _nonzero(t, z) * sigma * z
+
+
 # ---------------------------------------------------------------------------
 # process recording
 # ---------------------------------------------------------------------------
@@ -133,3 +181,74 @@ def record_update(buf: torch.Tensor, value: torch.Tensor, slot: int) -> torch.Te
     if slot >= 0:
         buf[slot] = value
     return buf
+
+
+# ---------------------------------------------------------------------------
+# unconditional sampling loop (the prior path)
+# ---------------------------------------------------------------------------
+
+def sample_loop(
+    model_fn: ModelFn,
+    schedule,
+    x_init: torch.Tensor,
+    cfg: SamplerConfig = SamplerConfig(),
+    timestep_offset: float = 0.0,
+    start_t: Optional[int] = None,
+    num_steps: Optional[int] = None,
+    record_every: Optional[int] = None,
+    record_steps: Optional[Sequence[int]] = None,
+    generator: Optional[torch.Generator] = None,
+    noise_fn: Optional[Callable[[int, Tuple[int, ...]], torch.Tensor]] = None,
+):
+    """Reverse diffusion without guidance, the model under ``torch.no_grad``.
+
+    With defaults this is DDPM ancestral sampling over the whole (respaced)
+    chain. ``start_t``/``num_steps`` run the steps ``start_t - 1`` down to
+    ``start_t - num_steps``: the prior sampler's "last N steps"
+    (osmosis_utils/diffusion.py:74-80). Each step's noise is
+    ``noise_fn(t, shape)`` when given, else a standard normal draw from
+    ``generator``. Returns ``(x, snapshots)``; snapshots (None without
+    recording) hold x_t and x0-hat at the recording steps.
+    """
+    T = schedule.num_timesteps
+    start_t = T if start_t is None else start_t
+    num_steps = start_t if num_steps is None else num_steps
+    device = x_init.device
+    if noise_fn is None:
+        if generator is None:
+            raise ValueError("sample_loop needs a generator or a noise_fn")
+
+        def noise_fn(t, shape):
+            return torch.randn(shape, generator=generator, device=device, dtype=x_init.dtype)
+
+    consts = device_constants(schedule, device)
+    if record_steps is not None or record_every is not None:
+        if record_steps is not None:
+            rec_steps = tuple(sorted(set(record_steps), reverse=True))
+        else:
+            rec_steps = record_steps_for(T, record_every, extra=(T - 1,))
+        slot_map = make_slot_map(T, rec_steps)
+        buf_xt = torch.zeros((len(rec_steps),) + tuple(x_init.shape), dtype=x_init.dtype,
+                             device=device)
+        buf_x0 = torch.zeros_like(buf_xt)
+    else:
+        rec_steps, slot_map = (), None
+
+    x = x_init
+    with torch.no_grad():
+        for t in range(start_t - 1, start_t - num_steps - 1, -1):
+            tb = torch.full((x.shape[0],), t, dtype=torch.long, device=device)
+            out = p_mean_variance(model_fn, x, tb, consts, cfg, timestep_offset)
+            z = noise_fn(t, tuple(x.shape))
+            if cfg.sampler == "ddim":
+                x_next = ddim_step(x, out, tb, z, consts, cfg.ddim_eta)
+            else:
+                x_next = ddpm_noise_step(out, tb, z)
+            if slot_map is not None:
+                record_update(buf_xt, x, int(slot_map[t]))
+                record_update(buf_x0, out["pred_xstart"], int(slot_map[t]))
+            x = x_next
+    snapshots = None
+    if slot_map is not None:
+        snapshots = {"steps": rec_steps, "x_t": buf_xt, "x0_hat": buf_x0}
+    return x, snapshots

@@ -39,9 +39,25 @@ class GaussianNoise(Noiser):
         return data + z * self.sigma
 
 
+@NOISES.register("poisson")
+@dataclasses.dataclass(frozen=True)
+class PoissonNoise(Noiser):
+    """skimage-style poisson shot noise on [0,1]*255 counts
+    (measurements.py:486-507, 'version 3')."""
+
+    rate: float = 1.0
+
+    def __call__(self, data, generator=None):
+        d = torch.clamp((data + 1.0) / 2.0, 0.0, 1.0)
+        counts = torch.poisson(d * 255.0 * self.rate, generator=generator)
+        d = counts.float() / 255.0 / self.rate
+        return torch.clamp(d * 2.0 - 1.0, -1.0, 1.0)
+
+
 def get_noiser(name: str, **kwargs) -> Noiser:
-    """The port has the 'clean' and 'gaussian' models; 'poisson' is not ported."""
     cls = NOISES.get(name)
     if name == "gaussian":
         return cls(name=name, sigma=float(kwargs.get("sigma", 0.0)))
+    if name == "poisson":
+        return cls(name=name, rate=float(kwargs.get("rate", 1.0)))
     return cls(name=name)

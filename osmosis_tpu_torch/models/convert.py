@@ -5,10 +5,13 @@ names are the port's module names, so it loads with ``load_state_dict`` as it
 is. :func:`state_dict_from_jax` carries weights the other way, from the JAX
 package's parameter tree (as numpy arrays) into this state_dict: the exact
 inverse of ``osmosis_tpu.models.convert.convert_state_dict``.
+:func:`cast_params_half` is the counterpart of the JAX package's
+``cast_params_half``: the bf16 torso's weights.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 from typing import Any, Dict, Optional
@@ -16,6 +19,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from .nn import GroupNorm32
 from .unet import UNetConfig, UNetModel, build_plan
 
 
@@ -114,11 +118,29 @@ def init_unet(cfg: UNetConfig, seed: int = 0) -> UNetModel:
         return UNetModel(cfg)
 
 
-def load_unet(model_path: Optional[str], cfg: UNetConfig, device, seed: int = 0) -> UNetModel:
+def cast_params_half(model: UNetModel, dtype: torch.dtype = torch.bfloat16) -> UNetModel:
+    """Cast every parameter to ``dtype`` in place, except the GroupNorm
+    weights and biases, which stay fp32 (``osmosis_tpu.models.convert.
+    cast_params_half`` without its ``gn_affine_bf16`` knob). The output conv
+    is cast too: its weights are rounded to ``dtype`` and the model computes
+    it in fp32, as the JAX model does."""
+    for module in model.modules():
+        if isinstance(module, GroupNorm32):
+            continue
+        for p in module.parameters(recurse=False):
+            p.data = p.data.to(dtype)
+    return model
+
+
+def load_unet(model_path: Optional[str], cfg: UNetConfig, device, seed: int = 0,
+              dtype: Optional[torch.dtype] = None) -> UNetModel:
     """Load a reference ``.pt`` state_dict into the port's UNet on ``device``
     in channels_last memory, weights frozen. Falls back to seeded random init
     with the reference's warning (unet.py:94-98) when the file is missing or
-    does not load."""
+    does not load. ``dtype`` (default ``cfg.dtype``) is the torso dtype; a
+    bfloat16 torso gets :func:`cast_params_half`."""
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
     model = init_unet(cfg, seed)
     try:
         if not (model_path and os.path.exists(model_path)):
@@ -126,5 +148,7 @@ def load_unet(model_path: Optional[str], cfg: UNetConfig, device, seed: int = 0)
         model.load_state_dict(torch.load(model_path, map_location="cpu", weights_only=True))
     except (OSError, RuntimeError, pickle.UnpicklingError) as e:
         print(f"Got exception: {e} / Randomly initialize")
+    if cfg.dtype != torch.float32:
+        cast_params_half(model, cfg.dtype)
     model.requires_grad_(False).eval()
     return model.to(device=device, memory_format=torch.channels_last)

@@ -16,6 +16,15 @@ loads with ``load_state_dict`` as it is.
 are NCHW in ``channels_last`` memory: ``x.permute(0, 3, 1, 2)`` of a contiguous
 NHWC tensor is a free view of that layout, which cuDNN's convolutions and the
 port's kernels read without a copy.
+
+``UNetConfig.dtype`` is the torso dtype, as in the JAX model. In bfloat16
+(parameters cast by ``convert.cast_params_half``) the casts follow the JAX
+model's: the input and the time embedding's first linear take bf16, every
+conv, linear and attention projection runs in bf16, the attention logits are
+an fp32 product of bf16 q and k, the softmax is fp32, GroupNorm statistics
+are fp32 with fp32 affines, and the torso's output is cast to fp32 before the
+output norm and the output conv, which runs in fp32 on its bf16-rounded
+weights. The model's output is fp32 either way.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ class UNetConfig:
     use_scale_shift_norm: bool = True
     resblock_updown: bool = True
     use_new_attention_order: bool = False
+    dtype: torch.dtype = torch.float32  # the torso dtype: float32 or bfloat16
 
     @property
     def time_embed_dim(self) -> int:
@@ -227,8 +237,11 @@ class AttentionBlock(nn.Module):
         else:  # part-major: channel = part*C + head*hc + c
             q, k, v = qkv.view(b, t, 3, heads, hc).unbind(2)
         scale = 1.0 / math.sqrt(math.sqrt(hc))
-        logits = torch.einsum("bthc,bshc->bhts", q * scale, k * scale)
-        weights = torch.softmax(logits.float(), dim=-1).to(v.dtype)
+        if q.dtype != torch.float32:  # the scale rounded to q's dtype, as JAX has it
+            scale = torch.tensor(scale, dtype=torch.float32).to(q.dtype).item()
+        # an fp32 product of (bf16) q and k: the logits are never rounded
+        logits = torch.einsum("bthc,bshc->bhts", (q * scale).float(), (k * scale).float())
+        weights = torch.softmax(logits, dim=-1).to(v.dtype)
         a = torch.einsum("bhts,bshc->bthc", weights, v).reshape(b, t, c)
         proj = F.linear(a, self.proj_out.weight[:, :, 0], self.proj_out.bias)
         return x + proj.view(b, hh, ww, c).permute(0, 3, 1, 2)
@@ -309,8 +322,9 @@ class UNetModel(nn.Module):
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
         """``x`` NHWC [B, H, W, in_channels], ``timesteps`` [B] -> NHWC
         [B, H, W, out_channels]."""
-        emb = self.time_embed(timestep_embedding(timesteps, self.cfg.model_channels))
-        h = x.permute(0, 3, 1, 2)
+        dt = self.cfg.dtype
+        emb = self.time_embed(timestep_embedding(timesteps, self.cfg.model_channels).to(dt))
+        h = x.permute(0, 3, 1, 2).to(dt)
         hs = []
         for block in self.input_blocks:
             for layer in block:
@@ -323,5 +337,6 @@ class UNetModel(nn.Module):
             for layer in block:
                 h = self._run_layer(layer, h, emb)
         h = self.out[0](h.float(), act="silu")
-        h = self.out[2](h)
+        conv = self.out[2]  # fp32 on the stored (bf16-rounded in a bf16 model) weights
+        h = F.conv2d(h, conv.weight.float(), conv.bias.float(), padding=1)
         return h.permute(0, 2, 3, 1)

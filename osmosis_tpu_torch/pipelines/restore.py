@@ -4,7 +4,9 @@ the reference osmosis_sampling.py:33-409), serial batch-1 path.
 Per image: preprocess on the host, run the guided chain on the device
 (:func:`osmosis_tpu_torch.diffusion.guided.guided_sample_loop`), then
 post-process on the host (physical recomposition, depth colormaps, grids)
-into the reference's run-dir layout.
+into the reference's run-dir layout. ``use_fp16: True`` runs the UNet torso
+in bfloat16; ``rgb_guidance: True`` runs vanilla DPS ('ps') and saves the
+final sample's RGB and depth.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from ..models.unet import unet_config_from_yaml
 from ..utils.logging import RunLogger
 from ..utils.rundir import make_output_dirs, update_save_dir_date
 
-_RESTORE_ITEM = "ROADMAP.md queue 1, item 4 (restore extensions)"
+_RESTORE_ITEM = "ROADMAP.md queue 1, item 2 (restore extensions)"
 
 
 def resolve_device(device) -> torch.device:
@@ -54,14 +56,11 @@ def _check_slice(args) -> None:
     data = args.data
     unsupported = [
         (int(data.get("batch_size", 1) or 1) > 1, "batch_size > 1 (the fleet path)", _RESTORE_ITEM),
-        (bool(getattr(args, "rgb_guidance", False)), "rgb_guidance", _RESTORE_ITEM),
         (int(getattr(args, "progress_segments", 0) or 0) > 1, "progress_segments", _RESTORE_ITEM),
         (bool(getattr(args, "chain_checkpoint", False)), "chain_checkpoint", _RESTORE_ITEM),
         (int(getattr(args, "best_of", 1) or 1) > 1, "best_of > 1", _RESTORE_ITEM),
         (args.sample_pattern.get("global_eta_scale") not in (None, 1.0), "global_eta_scale",
          _RESTORE_ITEM),
-        (bool(args.unet_model.get("use_fp16", False)), "use_fp16",
-         "ROADMAP.md queue 1, item 1 (bf16 torso)"),
     ]
     for bad, what, item in unsupported:
         if bad:
@@ -75,9 +74,26 @@ def _grad_mode_str(cp):
     return f"x_prev every {k} steps, x0 between" if k > 1 else "x_prev"
 
 
-def _log_run_header(logger, args, device):
-    """utils.py:635-669 log_text equivalent, plus the device and its matmul
-    precision."""
+def torso_dtype(args, dtype=torch.float32) -> torch.dtype:
+    """The UNet torso dtype of a run: bfloat16 where the config sets
+    ``use_fp16`` (the JAX package's half precision on the TPU), else ``dtype``."""
+    return torch.bfloat16 if args.unet_model.get("use_fp16") else dtype
+
+
+def precision_str(device, dtype) -> str:
+    """The device and the arithmetic a run uses, for the run header."""
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else str(device)
+    if dtype == torch.bfloat16:
+        return f"{name}, bf16 torso, fp32 GroupNorm statistics"
+    if device.type == "cuda":
+        return (f"{name}, fp32 with TF32 off "
+                "(cudnn.allow_tf32 = False, cuda.matmul.allow_tf32 = False)")
+    return f"{name}, fp32"
+
+
+def _log_run_header(logger, args, device, dtype):
+    """utils.py:635-669 log_text equivalent, plus the device and the
+    arithmetic it runs."""
     cp = args.conditioning["params"]
     op = args.measurement["operator"]
     txt = (
@@ -109,11 +125,7 @@ def _log_run_header(logger, args, device):
             f"\n     Update start from: {sp['update_start']}, end: {sp['update_end']}"
             f"\n     M: {sp['local_M']}, start: {sp['s_start']}, end: {sp['s_end']}"
         )
-    if device.type == "cuda":
-        txt += (f"\nDevice: {torch.cuda.get_device_name(device)}, fp32 with TF32 off "
-                "(cudnn.allow_tf32 = False, cuda.matmul.allow_tf32 = False)")
-    else:
-        txt += f"\nDevice: {device}, fp32"
+    txt += f"\nDevice: {precision_str(device, dtype)}"
     logger.log(txt)
 
 
@@ -169,8 +181,10 @@ def run_restoration(config_file: str, device="cuda:0",
                     save_dir_override: Optional[str] = None) -> str:
     """Run guided restoration over the configured dataset; returns the run dir.
 
-    Runs on ``device`` (CUDA unless the caller passes ``"cpu"``). On CUDA the
-    fp32 preset runs with TF32 off for cuDNN's convolutions and for matmuls.
+    Runs on ``device`` (CUDA unless the caller passes ``"cpu"``). The UNet
+    torso runs in bfloat16 where the config sets ``use_fp16``, else in fp32,
+    which on CUDA runs with TF32 off for cuDNN's convolutions and for
+    matmuls.
     ``x_start`` and every chain noise draw come from a ``torch.Generator`` on
     the device, seeded with ``manual_seed`` at each global iteration, so their
     bits differ from the JAX package's ``jax.random`` streams.
@@ -191,8 +205,10 @@ def run_restoration(config_file: str, device="cuda:0",
     else:
         dataset = D.ImagesFolder(data_config["root"], transform=transform)
 
+    dtype = torso_dtype(args)
     ucfg = unet_config_from_yaml(args.unet_model)
-    model = load_unet(args.unet_model.get("model_path", ""), ucfg, dev)
+    model = load_unet(args.unet_model.get("model_path", ""), ucfg, dev, dtype=dtype)
+    rgb_guidance = bool(getattr(args, "rgb_guidance", False))
 
     measure_config = args.measurement
     sample_pattern = args.sample_pattern
@@ -205,7 +221,8 @@ def run_restoration(config_file: str, device="cuda:0",
     paths = make_output_dirs(out_path, args.save_singles, args.save_grids)
     logger = RunLogger(out_path)
     logger.log(f"pretrained model file: {args.unet_model['model_path']}")
-    _log_run_header(logger, args, dev)
+    if not rgb_guidance:
+        _log_run_header(logger, args, dev, dtype)
 
     dcfg = args.diffusion
     schedule = make_schedule(
@@ -223,8 +240,8 @@ def run_restoration(config_file: str, device="cuda:0",
     operator = get_operator(operator_name, batch_size=1, **op_kwargs)
     noiser = get_noiser(**measure_config["noise"])
     gcfg = GuidanceConfig.from_config(
-        args.conditioning["method"], args.conditioning["params"], sample_pattern,
-        args.aux_loss, noiser_name=measure_config["noise"]["name"],
+        "ps" if rgb_guidance else args.conditioning["method"], args.conditioning["params"],
+        sample_pattern, args.aux_loss, noiser_name=measure_config["noise"]["name"],
     )
     record_every = args.record_every if args.record_process else None
 
@@ -282,12 +299,17 @@ def run_restoration(config_file: str, device="cuda:0",
         gt = (gt_rgb, gt_depth) if gt_flag else None
         for global_ii, (res, sample_seconds) in enumerate(chains):
             res = _to_numpy(res)
-            _save_osmosis_outputs(args, paths, orig_name, global_ii, ref_np[0], res, operator,
-                                  measure_config, logger, gt=gt)
+            if rgb_guidance:
+                _save_rgb_guidance_outputs(args, paths, orig_name, ref_np[0], res.sample[0],
+                                           logger)
+            else:
+                _save_osmosis_outputs(args, paths, orig_name, global_ii, ref_np[0], res,
+                                      operator, measure_config, logger, gt=gt)
             if record_every is not None and paths["grids"] is not None:
                 _save_process_grid(res.snapshots,
                                    pjoin(paths["grids"], f"{orig_name}_process.png"))
-            _log_trace_summary(logger, res)
+            if not rgb_guidance:
+                _log_trace_summary(logger, res)
             dt = datetime.datetime.now() - start_time
             logger.log(f"Run time: {dt}")
             logger.logkv("image", ref_img_name)
@@ -389,5 +411,26 @@ def _save_osmosis_outputs(args, paths, orig_name, global_ii, ref_img, res, opera
         grid = P.make_grid(grid_list, nrow=3, pad_value=1.0)
         P.save_png(grid, pjoin(paths["grids"], f"{orig_name}_g{global_ii}_grid.png"))
 
+    if args.save_singles or args.save_grids:
+        logger.log(f"result images was saved into: {paths['out']}")
+
+
+def _save_rgb_guidance_outputs(args, paths, orig_name, ref_img, sample, logger):
+    """osmosis_sampling.py:361-406: the rgb-guidance outputs, from the final
+    SAMPLE [H, W, 4] (not x0-hat)."""
+    ref01 = P.to_01(ref_img)
+    rgb01_clip = P.clip01(P.to_01(sample[..., 0:3]))
+    depth_mm = P.min_max_norm_range(sample[..., 3])
+    depth_pmm = P.min_max_norm_range_percentile(sample[..., 3], percent_low=0.05,
+                                                percent_high=0.99)
+    depth_color = P.depth_to_color(depth_pmm)
+    if args.save_singles:
+        P.save_png(ref01, pjoin(paths["input"], f"{orig_name}.png"))
+        P.save_png(rgb01_clip, pjoin(paths["rgb"], f"{orig_name}.png"))
+        P.save_png(depth_color, pjoin(paths["depth_color"], f"{orig_name}.png"))
+        P.save_png(depth_mm, pjoin(paths["depth_raw"], f"{orig_name}.png"))
+    if args.save_grids:
+        grid = P.make_grid([ref01, rgb01_clip, depth_color], nrow=3, pad_value=1.0)
+        P.save_png(grid, pjoin(paths["grids"], f"{orig_name}.png"))
     if args.save_singles or args.save_grids:
         logger.log(f"result images was saved into: {paths['out']}")

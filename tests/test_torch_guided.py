@@ -140,29 +140,6 @@ def test_tiny_unet_chain_with_jax_noise_matches_jax():
     _assert_result_close(res, jres, rtol=1e-3, atol=1e-4)
 
 
-@pytest.mark.parametrize("change", [
-    dict(params=dict(gradient_x_prev=False)),
-    dict(params=dict(x_prev_every=2)),
-    dict(method="ps"),
-    dict(sampler="ddim"),
-    dict(pattern=dict(local_M=2, s_start=0.5, s_end=0.1)),
-    dict(pattern=dict(phi_warmup_iters=3)),
-    dict(pattern=dict(start_guidance=0.5)),
-])
-def test_configurations_outside_the_slice_raise(change):
-    params = dict(COND_PARAMS, **change.get("params", {}))
-    pattern = dict(PATTERN, **change.get("pattern", {}))
-    gcfg = GuidanceConfig.from_config(change.get("method", "osmosis"), params, pattern, AUX)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        guided_sample_loop(
-            _fake_model_torch, make_schedule("linear", 1000, "10"), torch.zeros(1, HW, HW, 4),
-            torch.zeros(1, HW, HW, 3),
-            get_operator("underwater_physical_revised", batch_size=1, **OP_KW), gcfg,
-            SamplerConfig(sampler=change.get("sampler", "ddpm")), sample_pattern=pattern,
-            deterministic=True,
-        )
-
-
 def test_stochastic_chain_needs_a_generator_and_is_reproducible():
     op = get_operator("underwater_physical_revised", batch_size=1, **OP_KW)
     gcfg = GuidanceConfig.from_config("osmosis", COND_PARAMS, PATTERN, AUX)

@@ -156,3 +156,58 @@ def test_autograd_through_the_kernels_matches_the_cpu(cuda):
         outs.append((h.detach().cpu(), dx.cpu()))
     assert torch.allclose(outs[0][0], outs[1][0], rtol=1e-4, atol=1e-5)
     assert torch.allclose(outs[0][1], outs[1][1], rtol=1e-4, atol=1e-5)
+
+
+def _plain_on_the_card(monkeypatch):
+    """Route the autograd Functions of K1-K4 to the plain versions, on
+    whatever device their tensors are."""
+    monkeypatch.setattr(U, "upsample_nearest_2x_kernel", U.upsample_nearest_2x_plain)
+    monkeypatch.setattr(U, "box_sum_2x_kernel", U.box_sum_2x_plain)
+    monkeypatch.setattr(G, "group_norm_forward", G.group_norm_forward_plain)
+    monkeypatch.setattr(G, "group_norm_backward",
+                        lambda *a, param_grads=True: G.group_norm_backward_plain(*a))
+
+
+def test_bf16_tiny_unet_through_the_kernels_matches_the_plain_versions(cuda, monkeypatch):
+    """The bf16 torso's forward and x-VJP on the card, through K1-K4 and through
+    their plain versions (also on the card): the same bars as the bf16 torso
+    against JAX (tests/test_torch_bf16.py), max 3e-2 and mean 5e-3 of the
+    output's largest magnitude. The kernels keep fp32 where the plain
+    versions round intermediates to bf16."""
+    from osmosis_tpu_torch.models.convert import cast_params_half, init_unet
+    from osmosis_tpu_torch.models.unet import UNetConfig
+
+    cfg = UNetConfig(image_size=32, model_channels=64, num_res_blocks=1,
+                     attention_resolutions=(4,), channel_mult=(1, 2, 2), num_heads=4,
+                     num_head_channels=16, dtype=torch.bfloat16)
+    model = init_unet(cfg, seed=1)
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():  # the zero-initialized output convs carry signal too
+        for p in model.parameters():
+            if not p.any():
+                p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    model = cast_params_half(model).requires_grad_(False).to(
+        device=cuda, memory_format=torch.channels_last)
+    x = torch.randn(2, 32, 32, 4, generator=gen).to(cuda)
+    t = torch.tensor([17.0, 433.0], device=cuda)
+    g = torch.randn(2, 32, 32, 8, generator=gen).to(cuda)
+
+    def run():
+        xd = x.clone().requires_grad_(True)
+        y = model(xd, t)
+        (dx,) = torch.autograd.grad(y, xd, g)
+        return y.detach(), dx
+
+    counts = (U.upsample_nearest_2x_kernel.launches, G.group_norm_backward.launches)
+    got = run()
+    assert U.upsample_nearest_2x_kernel.launches > counts[0]
+    assert G.group_norm_backward.launches > counts[1]
+    with monkeypatch.context() as m:
+        _plain_on_the_card(m)
+        ref = run()
+    for what, a, r in (("forward", got[0], ref[0]), ("x-VJP", got[1], ref[1])):
+        assert a.dtype == torch.float32 and torch.isfinite(a).all(), what
+        scale = r.abs().max().item()
+        err = (a - r).abs()
+        assert err.max().item() <= 3e-2 * scale, f"{what}: max err {err.max().item()}"
+        assert err.mean().item() <= 5e-3 * scale, f"{what}: mean err {err.mean().item()}"

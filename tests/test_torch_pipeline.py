@@ -1,6 +1,8 @@
 """The port's restoration pipeline end to end on the CPU: a tiny random-init
 UNet, tiny images, few steps; checks the run-dir contract, the log lines and
-finite outputs, and that the entry points refuse to fall back to the CPU."""
+finite outputs, and that the entry points refuse to fall back to the CPU.
+Every restoration preset of ``configs/`` runs here on a tiny-UNet copy, its
+torso dtype (``use_fp16``), guidance mode and conditioning method kept."""
 
 import json
 import os
@@ -119,8 +121,48 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu(tmp_path, images, monkeypat
         main(["-c", _config(tmp_path, images), "-d", "0"])
 
 
+RESTORATION_PRESETS = [
+    "osmosis_sample_config.yaml", "osmosis_sample_fast_config.yaml",
+    "osmosis_sample_turbo_config.yaml", "osmosis_sample_x0_config.yaml",
+    "osmosis_sample_x0_turbo_config.yaml", "osmosis_sample_hybrid_config.yaml",
+    "osmosis_sample_hybrid_turbo_config.yaml", "osmosis_haze_sample_config.yaml",
+    "osmosis_simulation_sample_config.yaml", "rgb_guidance_sample_config.yaml",
+]
+
+
+@pytest.mark.parametrize("preset", RESTORATION_PRESETS)
+def test_every_restoration_preset_runs_on_cpu(tmp_path, images, preset):
+    from osmosis_tpu_torch.config import load_yaml
+
+    cfg = load_yaml(os.path.join("configs", preset))
+    use_fp16 = bool(cfg["unet_model"].get("use_fp16", False))
+    rgb_guidance = bool(cfg.get("rgb_guidance", False))
+    cfg["unet_model"] = dict(TINY_UNET, use_fp16=use_fp16)
+    respacing = str(cfg["diffusion"]["timestep_respacing"])
+    cfg["diffusion"]["timestep_respacing"] = "ddim6" if respacing.startswith("ddim") else 6
+    cfg["diffusion"]["clip_denoised"] = True  # random weights stay finite only when clipped
+    cfg["sample_pattern"]["n_iter"] = 2
+    cfg["data"] = dict(cfg["data"], root=images, stop_after=1, ground_truth=False)
+    cfg.update(save_dir=str(tmp_path / "results"), record_every=2)
+    path = str(tmp_path / preset)
+    with open(path, "w") as f:
+        yaml.dump(cfg, f)
+    out = run_restoration(path, device="cpu")
+    for sub in ("input", "rgb", "depth_color", "depth_raw"):
+        assert os.path.exists(pjoin(out, "single_images", sub, "img_0.png")), sub
+    grid = "img_0.png" if rgb_guidance else "img_0_g0_grid.png"
+    for name in (grid, "img_0_process.png"):
+        assert os.path.exists(pjoin(out, "grid_results", name)), name
+    with open(pjoin(out, "progress.json")) as f:
+        rows = [json.loads(line) for line in f if line.strip()]
+    assert len(rows) == 1 and np.isfinite(rows[0]["final_loss"])
+    log = open(pjoin(out, "log.txt")).read()
+    # rgb_guidance writes no run header, as in the JAX package
+    assert ("Guidance Scale" in log) == (not rgb_guidance)
+    assert ("bf16 torso, fp32 GroupNorm statistics" in log) == (use_fp16 and not rgb_guidance)
+
+
 @pytest.mark.parametrize("override", [
-    dict(rgb_guidance=True),
     dict(best_of=2),
     dict(progress_segments=4),
     dict(chain_checkpoint=True),

@@ -79,3 +79,20 @@ def test_snapshot_recording_matches_jax():
     jbuf = J.record_update(jbuf, jnp.ones((1, 2, 2, 4)), jnp.int32(slot[40]))
     jbuf = J.record_update(jbuf, 2 * jnp.ones((1, 2, 2, 4)), jnp.int32(slot[49]))
     np.testing.assert_array_equal(buf.numpy(), np.asarray(jbuf))
+
+
+def test_registries_name_the_jax_packages_components():
+    """Samplers, conditioning methods, noise models and operators register
+    under the JAX package's names."""
+    import osmosis_tpu.diffusion.guided  # noqa: F401  (registers the conditioners)
+    import osmosis_tpu.guidance.noise  # noqa: F401
+    import osmosis_tpu.guidance.operators  # noqa: F401
+    import osmosis_tpu_torch.diffusion.guided  # noqa: F401
+    import osmosis_tpu_torch.guidance.noise  # noqa: F401
+    import osmosis_tpu_torch.guidance.operators  # noqa: F401
+    from osmosis_tpu import registry as JR
+    from osmosis_tpu_torch import registry as TR
+
+    for name in ("SAMPLERS", "CONDITIONERS", "NOISES", "OPERATORS"):
+        assert getattr(TR, name).names() == getattr(JR, name).names(), name
+    assert TR.SAMPLERS.names() == ["ddim", "ddpm", "ltsp"]
