@@ -35,7 +35,24 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
   8. the RGBD prior sampler (``run_prior_sampling``) at full width, fp32, 20
      steps, one image: K3 at every forward, K4 never; seconds per step;
   9. rgb_guidance (vanilla DPS) through ``run_restoration``, fp32, 10 steps,
-     one image: the run dir complete.
+     one image: the run dir complete;
+ 10. the haze (haze_physical, degamma) and simulation (underwater_physical,
+     ground truth) presets through ``run_restoration`` at full width, fp32,
+     20 steps, one seeded image each (GT RGB and uint16 depth written from a
+     seed): the run dirs, the GT grid, the launch counts per step;
+ 11. every kernel at every main-path site at batch 4, as in phase 3, with
+     the launch geometries that differ from batch 1's printed;
+ 12. the fleet: data.batch_size 4 with 4 seeded images through
+     ``run_restoration``, the fp32 preset and the bf16 hybrid preset
+     (clip_denoised), with batch 1's launch counts per step; each lane's
+     first-step UNet output and pullback at batch 4 against its batch-1 call;
+     seconds per step and per image-step at batch 1, 2 and 4 in both dtypes,
+     the busy share at batch 4 and the peak memory;
+ 13. progress_segments and chain_checkpoint on the bf16 hybrid preset: two
+     plain runs compared, then a run killed after its first boundary and
+     resumed, whose PNGs must equal the uninterrupted run's byte for byte;
+ 14. best_of 2 with phi_jitter, global_N 2 with global_eta_scale 0.5 and
+     async_save, asserted by their log lines.
 The line before the last gives the card's name and power limit, the one
 before it the kernels' JSON summary (each kernel's fp32 numbers on the main
 path and its bf16 per-step numbers on the hybrid path); the last line is the
@@ -102,9 +119,9 @@ def check_close(what, got, ref, kind, dtype_name):
 # the main path's kernel call sites, from the UNet's architecture plan
 # ---------------------------------------------------------------------------
 
-def main_path_sites(cfg):
+def main_path_sites(cfg, batch=1):
     """Per UNet forward: GroupNorm sites (C, H, W, mode) and the NHWC input
-    shapes of the nearest-2x upsamples and the 2x2 pools."""
+    shapes of the nearest-2x upsamples and the 2x2 pools at ``batch``."""
     from osmosis_tpu_torch.models.unet import build_plan
 
     inputs, middle, outputs = build_plan(cfg)
@@ -117,10 +134,10 @@ def main_path_sites(cfg):
         if kind in ("res", "res_down", "res_up"):
             gn.append((lay["in_ch"], res, res, "silu"))
             if kind == "res_down":
-                pools.extend([(1, res, res, lay["in_ch"])] * 2)
+                pools.extend([(batch, res, res, lay["in_ch"])] * 2)
                 res //= 2
             elif kind == "res_up":
-                ups.extend([(1, res, res, lay["in_ch"])] * 2)
+                ups.extend([(batch, res, res, lay["in_ch"])] * 2)
                 res *= 2
             gn.append((lay["out_ch"], res, res, "film"))
         elif kind == "attn":
@@ -144,7 +161,7 @@ def counted(items):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_resample_kernels(ups, pools, report, k_hybrid):
+def check_resample_kernels(ups, pools, report, k_hybrid, suffix=""):
     import torch
     import torch.nn.functional as F
 
@@ -186,8 +203,8 @@ def check_resample_kernels(ups, pools, report, k_hybrid):
                 t_l = graph_time_ms(lib)
                 nbytes = (x.numel() + got.numel()) * x.element_size()
                 bound = nbytes / HBM_BYTES_PER_S * 1e3
-                rows.append(dict(kernel=name, shape=list(shape), scale=scale, dtype=dn,
-                                 per_step=n, max_abs_err=err, ms=t_k, eager_ms=t_e,
+                rows.append(dict(kernel=name, batch=shape[0], shape=list(shape), scale=scale,
+                                 dtype=dn, per_step=n, max_abs_err=err, ms=t_k, eager_ms=t_e,
                                  plain_ms=t_p, library_ms=t_l, bound_ms=bound))
                 log(f"  {name} {shape} x{scale} {dn}: err {err:.2e} kernel {t_k * 1e3:.1f} us"
                     f" (eager {t_e * 1e3:.1f}) plain {t_p * 1e3:.1f} library {t_l * 1e3:.1f}"
@@ -203,12 +220,12 @@ def check_resample_kernels(ups, pools, report, k_hybrid):
                                  ("bound_ms", bound), ("library_ms", t_l)):
                         hyb[k] += w * v
                     hyb["max_abs_err"] = max(hyb["max_abs_err"], err)
-        report[name] = agg
-        report[name + "_bf16_hybrid"] = hyb
+        report[name + suffix] = agg
+        report[name + "_bf16_hybrid" + suffix] = hyb
     return rows
 
 
-def check_norm_kernels(gn_sites, report, k_hybrid):
+def check_norm_kernels(gn_sites, report, k_hybrid, batch=1, suffix=""):
     import torch
     import torch.nn.functional as F
 
@@ -235,14 +252,15 @@ def check_norm_kernels(gn_sites, report, k_hybrid):
             def rnd(*shape, scale=1.0, shift=0.0, dt=dtype):
                 return (torch.randn(shape, generator=gen, device="cuda") * scale + shift).to(dt)
 
-            x = rnd(1, c, h, w, scale=1.5, shift=0.3).contiguous(memory_format=torch.channels_last)
+            x = rnd(batch, c, h, w, scale=1.5, shift=0.3).contiguous(
+                memory_format=torch.channels_last)
             wgt, bias = rnd(c, scale=0.1, shift=1.0, dt=torch.float32), rnd(c, scale=0.1,
                                                                              dt=torch.float32)
-            fs = rnd(1, c, scale=0.2) if mode == "film" else None
-            ft = rnd(1, c, scale=0.2) if mode == "film" else None
+            fs = rnd(batch, c, scale=0.2) if mode == "film" else None
+            ft = rnd(batch, c, scale=0.2) if mode == "film" else None
             silu = mode != "none"
-            gy = rnd(1, c, h, w).contiguous(memory_format=torch.channels_last)
-            tag = f"group_norm C={c} {h}x{w} {mode} {dn}"
+            gy = rnd(batch, c, h, w).contiguous(memory_format=torch.channels_last)
+            tag = f"group_norm B={batch} C={c} {h}x{w} {mode} {dn}"
 
             k0 = (G.group_norm_forward.kernel_launches, G.group_norm_backward.kernel_launches)
             y, m, i = G.group_norm_forward(x, wgt, bias, fs, ft, silu)
@@ -266,13 +284,17 @@ def check_norm_kernels(gn_sites, report, k_hybrid):
             geo = []
             for bwd, k_call in ((False, k1 - k0[0]), (True, k2 - k0[1])):
                 sums = 4 if (bwd and fs is not None) else 2
-                p = G._device_plan(torch.cuda.current_device(), 1, c, h, w,
-                                   G._DTYPE_CODES[dtype], G._mode(fs, silu), bwd, sums,
-                                   G.MAX_CLUSTER)
+                p, p1 = (G._device_plan(torch.cuda.current_device(), b, c, h, w,
+                                        G._DTYPE_CODES[dtype], G._mode(fs, silu), bwd, sums,
+                                        G.MAX_CLUSTER) for b in (batch, 1))
                 if k_call != p.kernels or k_call > 2:
                     raise AssertionError(f"{tag}: {k_call} device kernels in one call, "
                                          f"expected {p.kernels} ({p.geometry})")
                 geo.append(f"{p.geometry}/{p.cluster}")
+                if (p.geometry, p.cluster, p.chunks) != (p1.geometry, p1.cluster, p1.chunks):
+                    log(f"  plan {'K4' if bwd else 'K3'} {tag}: {p.geometry} cluster {p.cluster}"
+                        f" chunks {p.chunks} (batch 1: {p1.geometry} cluster {p1.cluster} "
+                        f"chunks {p1.chunks})")
             err_f = check_close(tag + " forward", y, yp, "norm", dn)
             check_close(tag + " mean", m, mp, "norm", "float32")
             check_close(tag + " inv", i, ip, "norm", "float32")
@@ -310,7 +332,7 @@ def check_norm_kernels(gn_sites, report, k_hybrid):
             item = x.element_size()
             bound_f = 2 * x.numel() * item / HBM_BYTES_PER_S * 1e3  # read x, write y
             bound_b = 3 * x.numel() * item / HBM_BYTES_PER_S * 1e3  # read x, dy; write dx
-            rows.append(dict(kernel="group_norm", C=c, H=h, W=w, mode=mode, dtype=dn,
+            rows.append(dict(kernel="group_norm", batch=batch, C=c, H=h, W=w, mode=mode, dtype=dn,
                              per_step=n, fwd_geometry=geo[0], bwd_geometry=geo[1], fwd_err=err_f, bwd_err=err_b, fwd_ms=t_f,
                              fwd_eager_ms=t_fe, fwd_plain_ms=t_fp, fwd_library_ms=t_fl,
                              fwd_bound_ms=bound_f, bwd_ms=t_b, bwd_eager_ms=t_be,
@@ -345,11 +367,11 @@ def check_norm_kernels(gn_sites, report, k_hybrid):
                     hyb[k] += wt * v
                 if wt:
                     hyb["max_abs_err"] = max(hyb["max_abs_err"], e)
-    report["group_norm_forward"] = agg_f
-    report["group_norm_backward"] = agg_b
-    report["group_norm_forward_bf16_hybrid"] = hyb_f
-    report["group_norm_backward_bf16_hybrid"] = hyb_b
-    report["group_norm_classes"] = classes
+    report["group_norm_forward" + suffix] = agg_f
+    report["group_norm_backward" + suffix] = agg_b
+    report["group_norm_forward_bf16_hybrid" + suffix] = hyb_f
+    report["group_norm_backward_bf16_hybrid" + suffix] = hyb_b
+    report["group_norm_classes" + suffix] = classes
     log("  K3/K4 by site class, fp32 device ms per guided step (kernel / library / bound):")
     for name, cls in classes.items():
         log(f"    {name} ({cls['sites']} sites): K3 {cls['k3_ms']:.4f} / {cls['k3_library_ms']:.4f}"
@@ -454,9 +476,11 @@ def check_counts(what, got, expected):
             raise AssertionError(f"{what}: {name} launched {got[name]} times, expected {n}")
 
 
-def write_preset(workdir, preset, checkpoint, **diffusion):
+def write_preset(workdir, preset, checkpoint, name=None, data=None, top=None, **diffusion):
     """A preset with the seeded random-init checkpoint, one image of
-    data/underwater and the run dir under ``workdir``; returns (path, config)."""
+    data/underwater (or the ``data`` section's changes) and the run dir under
+    ``workdir`` (or ``top``'s ``save_dir``), ``top``'s top-level keys set;
+    written as ``name``; returns (path, config)."""
     import yaml
 
     from osmosis_tpu_torch.config import load_yaml
@@ -466,9 +490,11 @@ def write_preset(workdir, preset, checkpoint, **diffusion):
     if "data" in cfg:
         cfg["data"]["root"] = os.path.join(ROOT, "data", "underwater")
         cfg["data"]["stop_after"] = 1
+        cfg["data"].update(data or {})
     cfg["diffusion"].update(diffusion)
     cfg["save_dir"] = os.path.join(workdir, "results")
-    path = os.path.join(workdir, preset)
+    cfg.update(top or {})
+    path = os.path.join(workdir, name or preset)
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
     return path, cfg
@@ -619,7 +645,7 @@ def time_guided_steps(workdir, n_steps=5):
 
     def chain():
         return guided_sample_loop(model, sch, x, y, op, gcfg, SamplerConfig(),
-                                  sample_pattern=pattern, generator=gen)
+                                  sample_pattern=pattern, seed=0)
 
     chain()
     torch.cuda.synchronize()
@@ -659,16 +685,29 @@ def device_busy_share(chain, n_steps, what="warm guided steps"):
     if dev_us <= 0:
         log(f"  device busy share over {what}: not measured (no CUDA time in the profile)")
         return None
+    # the union of the device's activity intervals: kernels that overlap (on
+    # other streams) count once, so this share cannot pass 1
+    dev = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    union_us, end = 0.0, -math.inf
+    for t0_us, t1_us in sorted((e.time_range.start, e.time_range.end) for e in dev):
+        if t1_us > end:
+            union_us += t1_us - max(t0_us, end)
+            end = t1_us
+    streams = len({getattr(e, "device_resource_id", 0) for e in dev})
     share = dev_us / 1e6 / wall
     log(f"  device busy share over {n_steps} {what} (torch.profiler): {share:.3f} "
         f"({dev_us / 1e3 / n_steps:.1f} ms of kernels per step over {wall * 1e3 / n_steps:.1f} "
         f"ms wall, profiler on); GroupNorm kernels {gn_us / 1e3 / n_steps:.2f} ms per step; "
         f"the same kernel time over the unprofiled wall of {wall_off * 1e3 / n_steps:.1f} ms "
-        f"a step: {dev_us / 1e6 / wall_off:.3f}")
+        f"a step: {dev_us / 1e6 / wall_off:.3f}; the device active (union of its intervals, "
+        f"{streams} stream(s)) {union_us / 1e3 / n_steps:.1f} ms per step, "
+        f"{union_us / 1e6 / wall:.3f} of the profiled wall")
     return dict(busy_share=share, device_ms_per_step=dev_us / 1e3 / n_steps,
                 wall_ms_per_step=wall * 1e3 / n_steps, gn_ms_per_step=gn_us / 1e3 / n_steps,
                 unprofiled_wall_ms_per_step=wall_off * 1e3 / n_steps,
-                busy_share_unprofiled_wall=dev_us / 1e6 / wall_off)
+                busy_share_unprofiled_wall=dev_us / 1e6 / wall_off,
+                active_ms_per_step=union_us / 1e3 / n_steps,
+                active_share=union_us / 1e6 / wall, streams=streams)
 
 
 # ---------------------------------------------------------------------------
@@ -749,7 +788,7 @@ def time_bf16_steps(model, cfg, n_steps=4):
                                           cfg["aux_loss"])
         sch = make_schedule("linear", 1000, str(n))
         return lambda: guided_sample_loop(model, sch, x, y, op, gcfg, SamplerConfig(),
-                                          sample_pattern=pattern, generator=gen)
+                                          sample_pattern=pattern, seed=0)
 
     out = {}
     for kind, change in (("x_prev", dict(x_prev_every=1)),
@@ -833,6 +872,386 @@ def run_rgb_guidance(workdir, checkpoint, gn_sites, ups, pools, steps=10):
                 seconds_per_step=row["sample_seconds"] / steps)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the haze and simulation presets
+# ---------------------------------------------------------------------------
+
+def write_images(root, n, seed, prefix, size=(256, 320)):
+    """``n`` seeded RGB PNGs: smooth colour fields plus noise, ``prefix_i.png``."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    yy, xx = np.mgrid[0:size[0], 0:size[1]] / max(size)
+    for i in range(n):
+        base = np.stack([np.sin(2 * np.pi * (rng.uniform(0.5, 2) * xx + rng.uniform(0, 1)
+                                             * yy + rng.uniform())) for _ in range(3)], -1)
+        img = 0.5 + 0.35 * base + 0.1 * rng.standard_normal(base.shape)
+        Image.fromarray((np.clip(img, 0, 1) * 255).astype(np.uint8)).save(
+            os.path.join(root, f"{prefix}_{i}.png"))
+
+
+def write_depth(root, n, seed, prefix, size=(256, 320)):
+    """``n`` seeded uint16 depth PNGs (a ramp plus noise), as NYUv2's GT is stored."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(root, exist_ok=True)
+    ramp = np.linspace(0.1, 0.9, size[0])[:, None] * np.ones(size)
+    for i in range(n):
+        d = np.clip(ramp + 0.05 * rng.standard_normal(size), 0, 1)
+        Image.fromarray((d * 65535).astype(np.uint16)).save(
+            os.path.join(root, f"{prefix}_{i}.png"))
+
+
+def preset_counts(gn_sites, ups, pools, steps, full_steps):
+    """Launches of a run: K3 and the forward resampling at every step, K4 and
+    the backward resampling at the ``full_steps`` x_prev steps."""
+    return {"group_norm_forward": len(gn_sites) * steps,
+            "group_norm_backward": len(gn_sites) * full_steps,
+            "upsample_nearest_2x": len(ups) * steps + len(pools) * full_steps,
+            "box_sum_2x": len(pools) * steps + len(ups) * full_steps}
+
+
+def run_counted(path, what, expected, **kw):
+    """``run_restoration`` on ``path`` with the launch counts zeroed before
+    and asserted after; returns (run dir, wall seconds, counts, peak bytes)."""
+    import torch
+
+    from osmosis_tpu_torch.pipelines.restore import run_restoration
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = run_restoration(path, device="cuda:0", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    check_counts(what, launches, expected)
+    return out, wall, launches, torch.cuda.max_memory_allocated()
+
+
+def run_haze_and_simulation(workdir, checkpoint, gn_sites, ups, pools):
+    """osmosis_haze_sample_config.yaml (haze_physical, degamma) and
+    osmosis_simulation_sample_config.yaml (underwater_physical, GT grids)
+    through ``run_restoration`` at full width, fp32, STEPS steps, one seeded
+    image each (with seeded GT RGB and uint16 depth for the simulation)."""
+    import numpy as np
+    from PIL import Image
+
+    out = {}
+    write_images(os.path.join(workdir, "haze"), 1, 10, "haze")
+    sim = os.path.join(workdir, "simulation")
+    write_images(os.path.join(sim, "input"), 1, 11, "sim")
+    write_images(os.path.join(sim, "gt_rgb"), 1, 12, "sim")
+    write_depth(os.path.join(sim, "gt_depth"), 1, 13, "sim")
+    for key, preset, data, img in (
+            ("haze", "osmosis_haze_sample_config.yaml",
+             dict(root=os.path.join(workdir, "haze")), "haze_0"),
+            ("simulation", "osmosis_simulation_sample_config.yaml",
+             dict(root=os.path.join(sim, "input"), gt_rgb=os.path.join(sim, "gt_rgb"),
+                  gt_depth=os.path.join(sim, "gt_depth")), "sim_0")):
+        path, cfg = write_preset(workdir, preset, checkpoint, data=data,
+                                 timestep_respacing=STEPS)
+        rd, wall, launches, peak = run_counted(
+            path, key, preset_counts(gn_sites, ups, pools, STEPS, STEPS))
+        files = [os.path.join("single_images", d, f"{img}.png")
+                 for d in ("input", "rgb", "depth_color", "depth_raw")]
+        files += [f"grid_results/{img}_g0_grid.png", f"grid_results/{img}_process.png"]
+        row = check_run_dir(rd, ("configurations.txt", "log.txt", "progress.json", *files))
+        grid = np.asarray(Image.open(os.path.join(rd, "grid_results", f"{img}_g0_grid.png")))
+        rows = 2 if cfg["data"]["ground_truth"] else 1  # outputs, then the GT row
+        if (grid.shape[0] > grid.shape[1] / 2) != (rows == 2):
+            raise AssertionError(f"{key}: grid {grid.shape} should hold {rows} row(s)")
+        with open(os.path.join(rd, "log.txt")) as f:
+            if "phase timings:" not in f.read():
+                raise AssertionError(f"{key}: no phase summary in the log")
+        s = row["sample_seconds"] / STEPS
+        log(f"  {key} ({cfg['measurement']['operator']['name']}): {wall:.1f} s, {s * 1e3:.1f} ms "
+            f"a step, launches {launches}, grid {grid.shape[:2]} ({rows} row(s)), chain_finite "
+            f"{row['chain_finite']}, peak {peak / 2 ** 30:.2f} GiB")
+        out[key] = dict(launches=launches, wall_s=wall, run=row, seconds_per_step=s,
+                        peak_bytes=peak)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the batch-4 fleet at full width
+# ---------------------------------------------------------------------------
+
+FLEET = 4
+LANE_TOL = {"float32": 1e-4, "bfloat16": 3e-2}  # of max|batch-1 value|
+
+
+def run_fleet(workdir, checkpoint, gn_sites, ups, pools, k_hybrid):
+    """data.batch_size: 4 with 4 seeded images through ``run_restoration``:
+    the fp32 preset (STEPS steps) and the bf16 hybrid preset (ddim STEPS),
+    both with clip_denoised. One call per kernel site whatever the batch, so
+    the launch counts per step are batch 1's."""
+    write_images(os.path.join(workdir, "fleet"), FLEET, 20, "fl")
+    data = dict(root=os.path.join(workdir, "fleet"), batch_size=FLEET, stop_after=-1)
+    out = {}
+    full = len(range(0, STEPS, k_hybrid))
+    for key, preset, resp, n_full in (
+            ("float32", "osmosis_sample_config.yaml", STEPS, STEPS),
+            ("bfloat16", "osmosis_sample_hybrid_config.yaml", f"ddim{STEPS}", full)):
+        path, _ = write_preset(workdir, preset, checkpoint, name=f"fleet_{key}.yaml", data=data,
+                               timestep_respacing=resp, clip_denoised=True)
+        rd, wall, launches, peak = run_counted(
+            path, f"fleet {key}", preset_counts(gn_sites, ups, pools, STEPS, n_full))
+        with open(os.path.join(rd, "progress.json")) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+        if sorted(r["image"] for r in rows) != [f"fl_{i}.png" for i in range(FLEET)] or any(
+                r["batch"] != FLEET for r in rows):
+            raise AssertionError(f"fleet {key}: rows {rows}")
+        check_run_dir(rd, [os.path.join("single_images", "rgb", f"fl_{i}.png")
+                           for i in range(FLEET)])
+        s = rows[0]["sample_seconds"] / STEPS
+        log(f"  fleet {key}, batch {FLEET}: {wall:.1f} s, {s * 1e3:.1f} ms a step, "
+            f"{s / FLEET * 1e3:.1f} ms an image-step; launches {launches} (batch 1's per step); "
+            f"chains finite {[r['chain_finite'] for r in rows]}; peak {peak / 2 ** 30:.2f} GiB")
+        out[key] = dict(launches=launches, wall_s=wall, seconds_per_step=s,
+                        seconds_per_image_step=s / FLEET, peak_bytes=peak,
+                        chain_finite=[r["chain_finite"] for r in rows])
+    return out
+
+
+def check_lane_parity(models):
+    """The first guided step's UNet output and x-pullback at batch 4 against
+    the batch-1 call of each lane (its own x_t and cotangent), per dtype."""
+    import torch
+
+    from osmosis_tpu_torch.diffusion.schedules import make_schedule
+
+    t_first = float(make_schedule("linear", 1000, STEPS).model_timesteps()[-1])
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    x = torch.randn((FLEET, 256, 256, 4), generator=gen, device="cuda")
+    g = torch.randn((FLEET, 256, 256, 4), generator=gen, device="cuda")
+    out = {}
+    for key, model in models.items():
+        def fwd_vjp(xx, gg):
+            xx = xx.detach().requires_grad_(True)
+            y = model(xx, torch.full((xx.shape[0],), t_first, device="cuda"))
+            (dx,) = torch.autograd.grad(y[..., :4], xx, gg)
+            return y.detach(), dx
+
+        y4, dx4 = fwd_vjp(x, g)
+        errs = dict(unet=0.0, pullback=0.0)
+        for j in range(FLEET):
+            y1, dx1 = fwd_vjp(x[j:j + 1], g[j:j + 1])
+            for what, a, b in (("unet", y4[j:j + 1], y1), ("pullback", dx4[j:j + 1], dx1)):
+                err = ((a - b).abs().max() / b.abs().max()).item()
+                if not (math.isfinite(err) and err <= LANE_TOL[key]):
+                    raise AssertionError(f"lane {j} {key} {what}: batch 4 vs batch 1 "
+                                         f"{err:.2e} of max|value| > {LANE_TOL[key]}")
+                errs[what] = max(errs[what], err)
+        log(f"  lane parity {key}, batch {FLEET} vs batch 1 (first step, t={t_first:.0f}): UNet "
+            f"output {errs['unet']:.2e}, pullback {errs['pullback']:.2e} of max|value| "
+            f"(limit {LANE_TOL[key]})")
+        out[key] = errs
+    return out
+
+
+def kernel_profile(chain, n_steps, top=8):
+    """Device time per kernel over one warm chain of ``n_steps`` steps, from
+    torch.profiler: the total and the ``top`` largest, in ms and calls per
+    step. None where the profiler shows no CUDA time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        chain()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            us = getattr(e, "self_cuda_time_total", 0.0) if us is None else us
+            rows.append((us / 1e3 / n_steps, e.count / n_steps, e.key))
+    if not rows:
+        return None
+    rows.sort(reverse=True)
+    return dict(total_ms_per_step=sum(r[0] for r in rows),
+                top=[dict(ms_per_step=ms, calls_per_step=c, kernel=k) for ms, c, k in rows[:top]])
+
+
+def time_fleet(models, cfgs):
+    """Seconds per warm step and per image-step at batch 1, 2 and 4 through
+    the fleet runner (fp32: x_prev steps; bf16: hybrid chains of 2k steps),
+    phi updated at every step; the fp32 step's largest kernels at each batch;
+    then the busy share over warm batch-4 steps."""
+    import torch
+
+    from osmosis_tpu_torch.diffusion.guided import GuidanceConfig
+    from osmosis_tpu_torch.diffusion.sampler import SamplerConfig
+    from osmosis_tpu_torch.diffusion.schedules import make_schedule
+    from osmosis_tpu_torch.guidance.operators import get_operator
+    from osmosis_tpu_torch.parallel.runner import make_batched_guided_runner
+
+    out = {}
+    for key, model in models.items():
+        cfg = cfgs[key]
+        op_kw = {k: v for k, v in cfg["measurement"]["operator"].items() if k != "name"}
+        op = get_operator(cfg["measurement"]["operator"]["name"], batch_size=1, **op_kw)
+        pattern = dict(cfg["sample_pattern"], update_start=1.0)
+        params = cfg["conditioning"]["params"]
+        gcfg = GuidanceConfig.from_config("osmosis", params, pattern, cfg["aux_loss"])
+        n_steps = 3 if key == "float32" else 2 * int(params.get("x_prev_every", 1))
+        run = make_batched_guided_runner(model, make_schedule("linear", 1000, str(n_steps)), op,
+                                         gcfg, SamplerConfig(clip_denoised=True),
+                                         sample_pattern=pattern)
+        gen = torch.Generator(device="cuda").manual_seed(40)
+        x1 = torch.randn((1, 256, 256, 4), generator=gen, device="cuda")
+        ys = torch.rand((FLEET, 256, 256, 3), generator=gen, device="cuda") * 2 - 1
+        rows = {}
+        for n in (1, 2, FLEET):
+            xs = x1.expand((n, 256, 256, 4)).contiguous()
+
+            def chain(xs=xs, n=n):
+                return run(xs, ys[:n], seed=0)
+
+            chain()
+            runs = []
+            for _ in range(2):  # two warm chains: their spread
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                chain()
+                torch.cuda.synchronize()
+                runs.append((time.perf_counter() - t0) / n_steps)
+            rows[n] = dict(seconds_per_step=runs, seconds_per_image_step=[s / n for s in runs])
+            log(f"  warm {key} fleet step at batch {n}: "
+                + " and ".join(f"{s * 1e3:.1f} ms ({s / n * 1e3:.1f} an image-step)"
+                               for s in runs))
+            if key == "float32":  # where a step's device time goes, batch by batch
+                prof = rows[n]["kernels"] = kernel_profile(chain, n_steps)
+                if prof is None:
+                    log("    kernels: not measured (no CUDA time in the profile)")
+                    continue
+                log(f"    kernels, {prof['total_ms_per_step']:.1f} ms a step in all; the largest "
+                    "(ms and calls a step):")
+                for r in prof["top"]:
+                    log(f"      {r['ms_per_step']:8.2f} ms {r['calls_per_step']:6.1f}x "
+                        f"{r['kernel'][:110]}")
+        busy = device_busy_share(chain, n_steps, f"warm {key} steps at batch {FLEET}")
+        out[key] = dict(batches=rows, busy=busy, steps=n_steps)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 13-14: segments, crash and resume; restarts, global chains, async save
+# ---------------------------------------------------------------------------
+
+def png_bytes(run_dir):
+    files = {}
+    for d, _, fs in os.walk(run_dir):
+        for f in fs:
+            if f.endswith(".png"):
+                with open(os.path.join(d, f), "rb") as fh:
+                    files[os.path.relpath(os.path.join(d, f), run_dir)] = fh.read()
+    return files
+
+
+def run_segments_and_resume(workdir, checkpoint, gn_sites, ups, pools, k_hybrid):
+    """The bf16 hybrid preset, ddim STEPS, one image, progress_segments 4:
+    two uninterrupted runs without chain_checkpoint (do two runs on this card
+    give the same bits? cuDNN may pick nondeterministic algorithms), one with
+    it, and one killed after its first boundary save
+    (OSMOSIS_TPU_CRASH_AFTER_SEGMENTS) and resumed: its PNGs must equal the
+    uninterrupted chain_checkpoint run's byte for byte."""
+    import osmosis_tpu_torch.pipelines.restore as R
+
+    full = len(range(0, STEPS, k_hybrid))
+    counts = preset_counts(gn_sites, ups, pools, STEPS, full)
+    out, runs = {}, {}
+    for key, top in (("plain_a", {}), ("plain_b", {}), ("checkpoint", dict(chain_checkpoint=True))):
+        path, _ = write_preset(workdir, "osmosis_sample_hybrid_config.yaml", checkpoint,
+                               name=f"seg_{key}.yaml", timestep_respacing=f"ddim{STEPS}",
+                               clip_denoised=True, top=dict(
+                                   progress_segments=4,
+                                   save_dir=os.path.join(workdir, f"seg_{key}"), **top))
+        rd, wall, _, _ = run_counted(path, f"segments {key}", counts)
+        with open(os.path.join(rd, "log.txt")) as f:
+            n_rows = f.read().count("  progress ")
+        if n_rows != 5:  # segments of 4 steps: 5 rows for 20 steps
+            raise AssertionError(f"segments {key}: {n_rows} progress rows, expected 5")
+        runs[key] = png_bytes(rd)
+        out[key + "_seconds_per_step"] = check_run_dir(rd, ())["sample_seconds"] / STEPS
+    same_plain = runs["plain_a"] == runs["plain_b"]
+    ms = {k: out[k + "_seconds_per_step"] * 1e3 for k in runs}
+    log(f"  two uninterrupted runs without chain_checkpoint give "
+        f"{'the same' if same_plain else 'DIFFERENT'} PNG bytes; with chain_checkpoint the "
+        f"same as them: {runs['checkpoint'] == runs['plain_a']}; ms a step: plain "
+        f"{ms['plain_a']:.1f} / {ms['plain_b']:.1f}, chain_checkpoint {ms['checkpoint']:.1f}")
+
+    path, _ = write_preset(workdir, "osmosis_sample_hybrid_config.yaml", checkpoint,
+                           name="seg_crash.yaml", timestep_respacing=f"ddim{STEPS}",
+                           clip_denoised=True, top=dict(
+                               progress_segments=4, chain_checkpoint=True,
+                               save_dir=os.path.join(workdir, "seg_crash")))
+    os.environ["OSMOSIS_TPU_CRASH_AFTER_SEGMENTS"] = str(R._CRASH_SAVES["n"] + 1)
+    try:
+        R.run_restoration(path, device="cuda:0")
+        raise AssertionError("the crash hook did not fire")
+    except RuntimeError as e:
+        if "injected crash" not in str(e):
+            raise
+        log(f"  crashed as injected: {e}")
+    finally:
+        del os.environ["OSMOSIS_TPU_CRASH_AFTER_SEGMENTS"]
+    path, _ = write_preset(workdir, "osmosis_sample_hybrid_config.yaml", checkpoint,
+                           name="seg_resume.yaml", timestep_respacing=f"ddim{STEPS}",
+                           clip_denoised=True, top=dict(
+                               progress_segments=4, chain_checkpoint=True, resume=True,
+                               save_dir=os.path.join(workdir, "seg_crash")))
+    resumed_counts = preset_counts(gn_sites, ups, pools, STEPS - 4, full - 1)
+    rd, _, _, _ = run_counted(path, "resume", resumed_counts)
+    with open(os.path.join(rd, "log.txt")) as f:
+        if "resuming chain at step 4/20" not in f.read():
+            raise AssertionError("the resumed run did not continue from step 4")
+    resumed = png_bytes(rd)
+    if resumed != runs["checkpoint"] or len(resumed) != 6:
+        raise AssertionError("the resumed run's PNGs differ from the uninterrupted run's")
+    log(f"  crash after the first boundary, resume from step 4/{STEPS}: the {len(resumed)} PNGs "
+        "equal the uninterrupted run's byte for byte")
+    out.update(same_without_deterministic=same_plain,
+               checkpoint_equals_plain=runs["checkpoint"] == runs["plain_a"],
+               resumed_bitwise=True)
+    return out
+
+
+def run_restarts(workdir, checkpoint, gn_sites, ups, pools, k_hybrid, steps=10):
+    """best_of 2 with phi_jitter, global_N 2 with global_eta_scale 0.5 and
+    async_save: the bf16 hybrid preset, ddim ``steps``, one image."""
+    path, cfg = write_preset(workdir, "osmosis_sample_hybrid_config.yaml", checkpoint,
+                             name="restarts.yaml", timestep_respacing=f"ddim{steps}",
+                             clip_denoised=True, top=dict(
+                                 best_of=2, phi_jitter=0.01, perf=dict(async_save=True)))
+    import yaml
+
+    cfg["sample_pattern"].update(global_N=2, global_eta_scale=0.5)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    chains = 4  # 2 restarts x 2 global chains
+    rd, wall, launches, _ = run_counted(path, "restarts", preset_counts(
+        gn_sites, ups, pools, chains * steps, chains * len(range(0, steps, k_hybrid))))
+    with open(os.path.join(rd, "log.txt")) as f:
+        text = f.read()
+    for line in ("restart 0: final loss", "restart 1: final loss", "kept restart with final loss",
+                 "global iteration: 1", "phase timings:"):
+        if line not in text:
+            raise AssertionError(f"restarts: the log lacks {line!r}")
+    with open(os.path.join(rd, "configurations.txt")) as f:
+        if "perf.async_save: True" not in f.read():
+            raise AssertionError("restarts: async_save is not in configurations.txt")
+    check_run_dir(rd, RESTORE_FILES + ("grid_results/uw_0_g1_grid.png",))
+    kept = [ln for ln in text.splitlines() if "restart" in ln and "final loss" in ln]
+    log(f"  restarts run: {wall:.1f} s, launches {launches}; " + "; ".join(kept))
+    return dict(launches=launches, wall_s=wall, log_lines=kept)
+
+
 def main():
     try:
         import torch
@@ -850,20 +1269,21 @@ def main():
     import tempfile
 
     from osmosis_tpu_torch.config import load_yaml
-    from osmosis_tpu_torch.models.unet import UNetConfig
+    from osmosis_tpu_torch.models.convert import load_unet
+    from osmosis_tpu_torch.models.unet import UNetConfig, unet_config_from_yaml
     from osmosis_tpu_torch.ops import _build
 
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/9] device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
+    log(f"[1/14] device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     built = _build.build_all()
-    log(f"[2/9] built CUDA kernels {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/14] built CUDA kernels {sorted(built)} in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/9] kernels against their plain versions at the main path's shapes")
+    log("[3/14] kernels against their plain versions at the main path's shapes")
     gn_sites, ups, pools = main_path_sites(UNetConfig())
     k_hybrid = int(load_yaml(os.path.join(ROOT, "configs", "osmosis_sample_hybrid_config.yaml"))[
         "conditioning"]["params"]["x_prev_every"])
@@ -871,12 +1291,12 @@ def main():
     rows = check_resample_kernels(ups, pools, report, k_hybrid)
     rows += check_norm_kernels(gn_sites, report, k_hybrid)
 
-    log("[4/9] tiny UNet: card (kernels) against CPU (plain versions), TF32 off")
+    log("[4/14] tiny UNet: card (kernels) against CPU (plain versions), TF32 off")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     tiny = check_tiny_unet()
 
-    log(f"[5/9] main path at full width: preset, {STEPS} respaced steps, one image")
+    log(f"[5/14] main path at full width: preset, {STEPS} respaced steps, one image")
     build_dir = os.path.join(ROOT, "osmosis_tpu_torch", "_build")
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
@@ -893,20 +1313,52 @@ def main():
             "group_norm_backward": len(gn_sites) * STEPS})
         ckpt = main_path["checkpoint"]
 
-        log(f"[6/9] bf16 fast path at full width: the hybrid preset, ddim{STEPS}, one image")
+        log(f"[6/14] bf16 fast path at full width: the hybrid preset, ddim{STEPS}, one image")
         hybrid, model, hybrid_cfg = run_bf16_hybrid(workdir, ckpt, gn_sites, ups, pools)
-        log("[7/9] bf16 timing by step kind, busy share, UNet rate")
+        log("[7/14] bf16 timing by step kind, busy share, UNet rate")
         hybrid.update(time_bf16_steps(model, hybrid_cfg))
         del model
         log(f"  bf16 seconds per warm step: x_prev {hybrid['x_prev_seconds_per_step']:.4f}, x0 "
             f"{hybrid['x0_seconds_per_step']:.4f}; {smi}")
 
-        log(f"[8/9] RGBD prior sampler at full width: {STEPS} steps, one image, fp32")
+        log(f"[8/14] RGBD prior sampler at full width: {STEPS} steps, one image, fp32")
         prior = run_prior(workdir, ckpt, gn_sites, ups, pools, steps=STEPS)
         log(f"  seconds per prior step: {prior['seconds_per_step']:.4f}; {smi}")
 
-        log("[9/9] rgb_guidance at full width: 10 steps, one image, fp32")
+        log("[9/14] rgb_guidance at full width: 10 steps, one image, fp32")
         rgb = run_rgb_guidance(workdir, ckpt, gn_sites, ups, pools, steps=10)
+
+        log(f"[10/14] haze and simulation presets at full width: {STEPS} steps, one image each, "
+            "fp32")
+        presets = run_haze_and_simulation(workdir, ckpt, gn_sites, ups, pools)
+
+        log(f"[11/14] kernels at batch {FLEET} against their plain versions at the main path's "
+            "shapes")
+        gn4, ups4, pools4 = main_path_sites(UNetConfig(), batch=FLEET)
+        rows += check_resample_kernels(ups4, pools4, report, k_hybrid, suffix="_b4")
+        rows += check_norm_kernels(gn4, report, k_hybrid, batch=FLEET, suffix="_b4")
+
+        log(f"[12/14] the batch-{FLEET} fleet at full width: fp32 preset ({STEPS} steps) and bf16 "
+            f"hybrid preset (ddim{STEPS}), {FLEET} seeded images, clip_denoised")
+        fleet = run_fleet(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
+        ucfg = unet_config_from_yaml(load_yaml(os.path.join(
+            ROOT, "configs", "osmosis_sample_config.yaml"))["unet_model"])
+        models = {"float32": load_unet(ckpt, ucfg, "cuda"),
+                  "bfloat16": load_unet(ckpt, ucfg, "cuda", dtype=torch.bfloat16)}
+        fleet["lane_parity"] = check_lane_parity(models)
+        fleet["timing"] = time_fleet(models, {
+            "float32": load_yaml(os.path.join(ROOT, "configs", "osmosis_sample_config.yaml")),
+            "bfloat16": hybrid_cfg})
+        del models
+        log(f"  {smi}")
+
+        log(f"[13/14] segments and resume: bf16 hybrid preset, ddim{STEPS}, progress_segments 4, "
+            "chain_checkpoint, a crash after the first boundary")
+        segments = run_segments_and_resume(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
+
+        log("[14/14] best_of 2 with phi_jitter, global_N 2 with global_eta_scale 0.5, async_save:"
+            " bf16 hybrid preset, ddim10, one image")
+        restarts = run_restarts(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
 
     meta = {
         "upsample_nearest_2x": ("cuda", "osmosis_tpu_torch/ops/csrc/upsample.cu",
@@ -922,6 +1374,7 @@ def main():
     for name, (route, source, replaces) in meta.items():
         agg = report[name]
         hyb = report[name + "_bf16_hybrid"]
+        b4, hyb4 = report[name + "_b4"], report[name + "_bf16_hybrid_b4"]
         kernels.append(dict(name=name, route=route, source=source, replaces=replaces,
                             launches=main_path["launches"][name],
                             max_abs_err=agg["max_abs_err"], ms=agg["ms"],
@@ -933,12 +1386,24 @@ def main():
                             bf16_hybrid_eager_ms_per_step=hyb["eager_ms"],
                             bf16_hybrid_plain_ms_per_step=hyb["plain_ms"],
                             bf16_hybrid_bound_ms_per_step=hyb["bound_ms"],
-                            bf16_hybrid_library_ms_per_step=hyb["library_ms"]))
+                            bf16_hybrid_library_ms_per_step=hyb["library_ms"],
+                            b4_max_abs_err=b4["max_abs_err"], b4_ms=b4["ms"],
+                            b4_eager_ms=b4["eager_ms"], b4_plain_ms=b4["plain_ms"],
+                            b4_bound_ms=b4["bound_ms"], b4_library_ms=b4["library_ms"],
+                            b4_bf16_hybrid_ms_per_step=hyb4["ms"],
+                            b4_bf16_hybrid_eager_ms_per_step=hyb4["eager_ms"],
+                            b4_bf16_hybrid_plain_ms_per_step=hyb4["plain_ms"],
+                            b4_bf16_hybrid_bound_ms_per_step=hyb4["bound_ms"],
+                            b4_bf16_hybrid_library_ms_per_step=hyb4["library_ms"],
+                            b4_bf16_hybrid_max_abs_err=hyb4["max_abs_err"],
+                            fleet_fp32_launches=fleet["float32"]["launches"][name],
+                            fleet_bf16_launches=fleet["bfloat16"]["launches"][name]))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_report.json"), "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, kernels=kernels, rows=rows, tiny_unet=tiny,
                        main_path=main_path, bf16_hybrid=hybrid, prior=prior, rgb_guidance=rgb,
-                       seconds=time.perf_counter() - t_start), f, indent=1)
+                       presets=presets, fleet=fleet, segments=segments, restarts=restarts,
+                       seconds=time.perf_counter() - t_start), f, indent=1, default=str)
     log(f"  per-shape rows in results/chip_smoke_report.json; "
         f"total {time.perf_counter() - t_start:.1f} s")
     log("  kernel ms / plain_ms / bound_ms / library_ms: fp32 device times (ten calls a "
@@ -954,6 +1419,14 @@ def main():
             f"{k['bf16_hybrid_eager_ms_per_step']:.3f} / "
             f"{k['bf16_hybrid_plain_ms_per_step']:.3f} / {k['bf16_hybrid_library_ms_per_step']:.3f}"
             f" / {k['bf16_hybrid_bound_ms_per_step']:.3f}; launches {k['bf16_hybrid_launches']}")
+    log(f"  batch {FLEET}, device ms per step (fp32 kernel / plain / library / bound; bf16 hybrid "
+        "kernel / library / bound), launches over the fleet runs (fp32, bf16):")
+    for k in kernels:
+        log(f"    {k['name']}: {k['b4_ms']:.3f} / {k['b4_plain_ms']:.3f} / {k['b4_library_ms']:.3f}"
+            f" / {k['b4_bound_ms']:.3f}; {k['b4_bf16_hybrid_ms_per_step']:.3f} / "
+            f"{k['b4_bf16_hybrid_library_ms_per_step']:.3f} / "
+            f"{k['b4_bf16_hybrid_bound_ms_per_step']:.3f}; launches {k['fleet_fp32_launches']}, "
+            f"{k['fleet_bf16_launches']}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -64,6 +64,16 @@ class ImagesFolder:
             yield self[i]
 
 
+def _read_unchanged(path: str) -> np.ndarray:
+    """``cv2.imread(path, cv2.IMREAD_UNCHANGED)``; PIL's decode where OpenCV
+    is not installed (the same array for grayscale PNGs, 16-bit included)."""
+    try:
+        import cv2
+    except ImportError:
+        return np.asarray(Image.open(path))
+    return cv2.imread(path, cv2.IMREAD_UNCHANGED)
+
+
 class ImagesFolderGT:
     """Input + GT rgb + GT depth triples for the simulation set
     (data.py:73-109). uint16 depth maps are scaled //256 to uint8 then
@@ -83,9 +93,7 @@ class ImagesFolderGT:
         image = _load_image(self.images_list[idx])
         gt_rgb = _load_image(self.gt_rgb_list[idx])
 
-        import cv2
-
-        depth_arr = cv2.imread(self.gt_depth_list[idx], cv2.IMREAD_UNCHANGED)
+        depth_arr = _read_unchanged(self.gt_depth_list[idx])
         if depth_arr.dtype == np.uint16:
             gt_depth = Image.fromarray((depth_arr // 256).astype(np.uint8))
         else:

@@ -28,12 +28,22 @@ repeats ``alternate_len[t]`` times at the same t.
 The pcgs masks are numpy arrays read on the host, so no step waits on the
 device for a branch. Traces (per-step loss, phi, aux losses, x0-hat std)
 stay on the device until the chain ends.
+
+A chain runs as one call or as segments (``ts``): each segment takes the
+previous one's sample, phi, optimizer state, snapshot buffer and eps
+history, and noise keyed on (seed, t, i) (:func:`keyed_noise_fn`) gives
+every step the same draw wherever the chain was cut, so segments, and a
+chain resumed from a saved boundary, reproduce the single call bit for bit.
+At batch B > 1 the guidance loss couples the images (one norm over the
+batch, as the JAX loop computes it); ``lane_separable=True`` sums per-image
+losses instead, so each image gets the gradients it has at batch 1: the
+fleet (``osmosis_tpu_torch.parallel.runner``) runs that way.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +75,32 @@ from .schedules import DiffusionSchedule
 # (t, shape) -> z, or (t, shape, i) -> z for the i-th repeat (i > 0) of a
 # step under local_M > 1 alternation
 NoiseFn = Callable[..., torch.Tensor]
+
+_U64 = (1 << 64) - 1
+
+
+def draw_seed(seed: int, *path: int) -> int:
+    """A 63-bit generator seed derived from ``seed`` and a path of integers,
+    the port's counterpart of ``fold_in(key, ...)``: distinct paths give
+    independent streams."""
+    words = np.random.SeedSequence([int(seed) & _U64, *path]).generate_state(2, np.uint32)
+    return ((int(words[0]) << 32) | int(words[1])) >> 1
+
+
+def keyed_noise_fn(seed: int, device, dtype=torch.float32, shared_lanes: bool = False) -> NoiseFn:
+    """Chain noise keyed on (seed, t, i): the draw at step t (repeat i) is a
+    standard normal from a generator seeded by ``draw_seed(seed, 1, t, i)``,
+    whatever steps ran before it. With ``shared_lanes`` one lane is drawn and
+    broadcast to every lane of the batch (the fleet: lane j then sees the
+    noise of image j's batch-1 chain)."""
+
+    def noise_fn(t, shape, i=0):
+        gen = torch.Generator(device=device).manual_seed(draw_seed(seed, 1, int(t), int(i)))
+        one = (1,) + tuple(shape[1:]) if shared_lanes else tuple(shape)
+        z = torch.randn(one, generator=gen, device=device, dtype=dtype)
+        return z.expand(tuple(shape)) if shared_lanes else z
+
+    return noise_fn
 
 CONDITIONERS.register("osmosis")("osmosis")
 CONDITIONERS.register("ps")("ps")
@@ -198,20 +234,36 @@ def guided_sample_loop(
     deterministic: bool = False,
     phi_init: Optional[Dict[str, torch.Tensor]] = None,
     opt_state_init: Optional[dict] = None,
-    generator: Optional[torch.Generator] = None,
     noise_fn: Optional[NoiseFn] = None,
     eps_hist_init: Optional[Tuple[torch.Tensor, ...]] = None,
+    seed: Optional[int] = None,
+    eta_scale: Optional[float] = None,
+    ts: Optional[Sequence[int]] = None,
+    x0_buf_init: Optional[torch.Tensor] = None,
+    lane_separable: bool = False,
+    progress_every: Optional[int] = None,
 ) -> GuidedResult:
-    """Run the guided reverse process over the whole chain. Tensors NHWC.
+    """Run the guided reverse process (or a segment of it). Tensors NHWC.
 
     ``deterministic=True`` adds no noise (the chain follows posterior means).
     Otherwise each step's noise is ``noise_fn(t, shape)`` when given (tests
     feed the JAX package's ``normal(fold_in(fold_in(key, t), i))`` draws
     through it; the i-th repeat of a step under local_M > 1 alternation calls
-    ``noise_fn(t, shape, i)`` for i > 0), else a standard normal draw from
-    ``generator``. ``phi_init``/``opt_state_init`` warm-start phi and its
-    optimizer state (global_N > 1 restarts); ``eps_hist_init`` the ltsp
-    sampler's eps history.
+    ``noise_fn(t, shape, i)`` for i > 0), else a draw keyed on (``seed``, t,
+    i) (:func:`keyed_noise_fn`).
+    ``phi_init``/``opt_state_init`` warm-start phi and its optimizer state
+    (global_N > 1 restarts); ``eps_hist_init`` the ltsp sampler's eps
+    history.
+
+    ``eta_scale`` multiplies every phi step (``global_eta_scale``; 0 freezes
+    phi). ``ts`` runs only that descending slice of the chain's timesteps,
+    from ``x_init`` as the incoming x_t and ``x0_buf_init`` as the incoming
+    snapshot buffer; the hybrid schedule places its x_prev steps by position
+    within the slice, so callers cut non-final segments at multiples of
+    ``x_prev_every``. ``lane_separable`` makes the loss the sum of per-image
+    losses (aux terms included; aux traces then [T, B]). ``progress_every``
+    prints the loss and phi of the first image at every timestep divisible
+    by it (a host sync each time).
     """
     T = schedule.num_timesteps
     B = x_init.shape[0]
@@ -223,11 +275,9 @@ def guided_sample_loop(
     ps = gcfg.method == "ps"
     ltsp = scfg.sampler == "ltsp"
     if not deterministic and noise_fn is None:
-        if generator is None:
-            raise ValueError("a stochastic chain needs a generator or a noise_fn")
-
-        def noise_fn(t, shape, i=0):
-            return torch.randn(shape, generator=generator, device=device, dtype=x_init.dtype)
+        if seed is None:
+            raise ValueError("a stochastic chain needs a seed or a noise_fn")
+        noise_fn = keyed_noise_fn(seed, device, x_init.dtype)
 
     def draw(t, shape, i):
         return noise_fn(t, shape) if i == 0 else noise_fn(t, shape, i)
@@ -235,7 +285,8 @@ def guided_sample_loop(
     consts = device_constants(schedule, device)
     aux_fn = make_aux_loss_fn(dict(gcfg.aux_loss))
     aux_names = [k for k, _ in gcfg.aux_loss]
-    zero_aux = {k: torch.zeros((), device=device) for k in aux_names}
+    zero_aux = {k: torch.zeros((B,) if lane_separable else (), device=device)
+                for k in aux_names}
     weight_fn = _make_weight_fn(gcfg)
     scale = torch.tensor(gcfg.scale, dtype=torch.float32, device=device)
     scale = scale[0] if scale.numel() == 1 else scale.reshape(1, 1, 1, -1)
@@ -244,20 +295,31 @@ def guided_sample_loop(
     phi = {k: torch.as_tensor(v, dtype=torch.float32, device=device) for k, v in src.items()}
     opt = make_phi_optimizer(operator.optimizer, operator.etas())
     opt_state = opt_state_init if opt_state_init is not None else opt.init(phi)
+    if eta_scale is not None:
+        # every phi step times a scalar: p + s·(p' − p), as the JAX loop does
+        # (guided.py:288-305); the optimizer state evolves as without it
+        s_eta = torch.tensor(float(eta_scale), dtype=torch.float32, device=device)
+        base_update = opt.update
+
+        def scaled_update(phi_, g_, st_):
+            new, st2 = base_update(phi_, g_, st_)
+            return {k: phi_[k] + s_eta * (new[k] - phi_[k]) for k in phi_}, st2
+
+        opt = dataclasses.replace(opt, update=scaled_update)
     y = measurement
 
     def loss_terms(x0, phi_):
         degraded = 2.0 * operator.forward(phi_, x0) - 1.0
         diff = ((y - degraded) * weight_fn(x0)).float()
         if gcfg.loss_function == "norm":
-            loss = torch.sqrt(torch.sum(diff ** 2))
             sep = torch.sqrt(torch.sum(diff ** 2, dim=(1, 2, 3)))
+            loss = torch.sum(sep) if lane_separable else torch.sqrt(torch.sum(diff ** 2))
         else:
             sep = torch.mean(diff ** 2, dim=(1, 2, 3))
             loss = torch.sum(sep)
         aux = {}
         if aux_fn is not None:
-            aux_total, aux = aux_fn(x0)
+            aux_total, aux = aux_fn(x0, per_lane=lane_separable)
             loss = loss + aux_total
         return loss, sep, aux
 
@@ -274,16 +336,24 @@ def guided_sample_loop(
         return g_x0, g_phi, sep.detach(), {k: aux[k].detach() for k in aux_names}
 
     def ps_loss_grad(x0):
-        """condition_methods.py:35-53: the loss and its x0-hat gradient."""
+        """condition_methods.py:35-53: the loss ([B] per image with
+        ``lane_separable``, else one value for the batch) and the x0-hat
+        gradient of its sum."""
         x0_leaf = x0.detach().requires_grad_(True)
+        dims = (1, 2, 3)
         with torch.enable_grad():
             if gcfg.noiser_name == "gaussian":  # ‖y − A(x0[..., :3])‖
                 diff = (y - operator.forward({}, x0_leaf[..., 0:3])).float()
-                loss = torch.sqrt(torch.sum(diff ** 2))
+                loss = (torch.sqrt(torch.sum(diff ** 2, dim=dims)) if lane_separable
+                        else torch.sqrt(torch.sum(diff ** 2)))
             else:  # poisson: over the FULL x0, no RGB slice (condition_methods.py:43-48)
                 diff = (y - operator.forward({}, x0_leaf)).float()
-                loss = torch.mean(torch.sqrt(torch.sum(diff ** 2)) / torch.abs(y.float()))
-            (g_x0,) = torch.autograd.grad(loss, x0_leaf)
+                if lane_separable:
+                    norm = torch.sqrt(torch.sum(diff ** 2, dim=dims)).reshape(-1, 1, 1, 1)
+                    loss = torch.mean(norm / torch.abs(y.float()), dim=dims)
+                else:
+                    loss = torch.mean(torch.sqrt(torch.sum(diff ** 2)) / torch.abs(y.float()))
+            (g_x0,) = torch.autograd.grad(loss.sum(), x0_leaf)
         return loss.detach(), g_x0
 
     def unet_x0(x, tb, use_x_prev):
@@ -345,7 +415,7 @@ def guided_sample_loop(
             sample = ddpm_noise_step(out, tb, draw(t, tuple(x.shape), i))
         loss, g_x0 = ps_loss_grad(x0)
         g_used = pullback(xg, x0_graph, g_x0) if use_x_prev else g_x0
-        return sample - scale * g_used, x0, loss.expand(B)
+        return sample - scale * g_used, x0, loss.expand(B) if loss.dim() == 0 else loss
 
     if ltsp:
         plms = torch.from_numpy(_plms_coeffs(T)).to(device)
@@ -383,8 +453,11 @@ def guided_sample_loop(
     if record_every is not None:
         rec_steps = record_steps_for(T, record_every, extra=(T - 1, 999))
         slot_map = make_slot_map(T, rec_steps)
-        buf_x0 = torch.zeros((len(rec_steps),) + tuple(x_init.shape), dtype=x_init.dtype,
-                             device=device)
+        if x0_buf_init is not None:  # a segment: earlier segments' snapshots carry on
+            buf_x0 = torch.as_tensor(x0_buf_init, device=device).clone()
+        else:
+            buf_x0 = torch.zeros((len(rec_steps),) + tuple(x_init.shape), dtype=x_init.dtype,
+                                 device=device)
     else:
         rec_steps, slot_map, buf_x0 = (), None, None
 
@@ -397,7 +470,8 @@ def guided_sample_loop(
     seps, phis, auxs, stds = [], [], [], []
     x = x_init.detach()
     x0 = torch.zeros_like(x)
-    for s, t in enumerate(range(T - 1, -1, -1)):
+    steps = range(T - 1, -1, -1) if ts is None else [int(t) for t in ts]
+    for s, t in enumerate(steps):
         tb = torch.full((B,), t, dtype=torch.long, device=device)
         use_x_prev = full_grad and s % every == 0
         sep, aux_vec = torch.zeros((B,), device=device), zero_aux
@@ -413,6 +487,9 @@ def guided_sample_loop(
         phis.append(phi)
         auxs.append(aux_vec)
         stds.append(x0.float().reshape(B, -1).std(dim=1, unbiased=False))
+        if progress_every and t % progress_every == 0:
+            vals = {k: np.round(v[0].detach().cpu().numpy(), 3).tolist() for k, v in phi.items()}
+            print(f"  t={t:4d} loss={float(sep[0]):.3f} {vals}", flush=True)
 
     return GuidedResult(
         sample=x,

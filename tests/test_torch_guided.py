@@ -152,7 +152,7 @@ def test_stochastic_chain_needs_a_generator_and_is_reproducible():
         guided_sample_loop(_fake_model_torch, sch, x, y, op, gcfg, scfg, sample_pattern=PATTERN)
     runs = [
         guided_sample_loop(_fake_model_torch, sch, x, y, op, gcfg, scfg, sample_pattern=PATTERN,
-                           generator=torch.Generator().manual_seed(4)).sample
+                           seed=4).sample
         for _ in range(2)
     ]
     assert torch.equal(runs[0], runs[1]) and torch.isfinite(runs[0]).all()

@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of ``osmosis_tpu_torch``
-loads neither JAX, Flax nor the JAX package, and no source of the port or
-``chip_smoke.py`` imports them, or Triton: the kernels are CUDA C++."""
+loads neither JAX, Flax, ml_dtypes nor the JAX package, and no source of the
+port or ``chip_smoke.py`` imports them, or Triton: the kernels are CUDA C++."""
 
 import os
 import pkgutil
@@ -26,7 +26,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'osmosis_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ml_dtypes', 'osmosis_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -53,7 +53,7 @@ def _importers(names):
 
 
 def test_no_source_imports_jax_or_the_jax_package():
-    offenders = _importers(["jax", "flax", "osmosis_tpu"])
+    offenders = _importers(["jax", "flax", "ml_dtypes", "osmosis_tpu"])
     assert not offenders, offenders
 
 

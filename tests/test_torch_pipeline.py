@@ -160,13 +160,3 @@ def test_every_restoration_preset_runs_on_cpu(tmp_path, images, preset):
     # rgb_guidance writes no run header, as in the JAX package
     assert ("Guidance Scale" in log) == (not rgb_guidance)
     assert ("bf16 torso, fp32 GroupNorm statistics" in log) == (use_fp16 and not rgb_guidance)
-
-
-@pytest.mark.parametrize("override", [
-    dict(best_of=2),
-    dict(progress_segments=4),
-    dict(chain_checkpoint=True),
-])
-def test_restore_extensions_outside_the_slice_raise(tmp_path, images, override):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_restoration(_config(tmp_path, images, **override), device="cpu")
