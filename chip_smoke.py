@@ -8,7 +8,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
   2. build: the CUDA C++ kernels (K1-K4) from osmosis_tpu_torch/ops/csrc with
      nvcc for sm_90a, one nvcc per source, all started together;
   3. kernels: every kernel (K1-K4) against its plain PyTorch version at every
-     shape the main path gives it, fp32 and bf16, forward and backward, timed
+     shape the main path gives it, fp32 and bf16, forward and backward (K4
+     with and without its parameter sums), timed
      on the device (ten calls captured in one CUDA graph, replayed) and
      eagerly, beside its
      plain version, its byte bound and one PyTorch library call that
@@ -41,7 +42,9 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
      20 steps, one seeded image each (GT RGB and uint16 depth written from a
      seed): the run dirs, the GT grid, the launch counts per step;
  11. every kernel at every main-path site at batch 4, as in phase 3, with
-     the launch geometries that differ from batch 1's printed;
+     the launch geometries that differ from batch 1's printed; K4 also timed
+     with its parameter sums (a train step's call) against its bound and the
+     library's autograd with the weight gradients;
  12. the fleet: data.batch_size 4 with 4 seeded images through
      ``run_restoration``, the fp32 preset and the bf16 hybrid preset
      (clip_denoised), with batch 1's launch counts per step; each lane's
@@ -52,11 +55,22 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
      plain runs compared, then a run killed after its first boundary and
      resumed, whose PNGs must equal the uninterrupted run's byte for byte;
  14. best_of 2 with phi_jitter, global_N 2 with global_eta_scale 0.5 and
-     async_save, asserted by their log lines.
+     async_save, asserted by their log lines;
+ 15. training at full width: the toy-prior trainer's step (Adam and the EMA)
+     on ``toy_unet_config(256, 256, "production")``, the preset model's 552.8M
+     parameters, batch 4, fp32: seconds per step and per image, the busy
+     share, the peak; K1-K4's launches per step asserted, K4 with its
+     parameter sums at every site (the FiLM sums at the 42 FiLM sites);
+     finite loss and gradients, the EMA moved; one step with remat (K3 run
+     again in the backward) at a lower peak;
+ 16. the toy loop: ``train_toy_prior`` at 32x32 (300 steps at batch 128,
+     health check on) whose loss must fall; a restore run of the preset at
+     toy size that loads its EMA checkpoint (``.msgpack``) without the
+     random-init fallback; one tiny train step on the card against the CPU.
 The line before the last gives the card's name and power limit, the one
 before it the kernels' JSON summary (each kernel's fp32 numbers on the main
-path and its bf16 per-step numbers on the hybrid path); the last line is the
-result.
+path, its bf16 per-step numbers on the hybrid path, at batch 4, and per train
+step); the last line is the result.
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
 """
@@ -237,6 +251,7 @@ def check_norm_kernels(gn_sites, report, k_hybrid, batch=1, suffix=""):
     agg_f = dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                  max_abs_err=0.0)
     agg_b = dict(agg_f)
+    agg_t = dict(agg_f)  # K4 as a train step calls it: with the parameter sums
     hyb_f = dict(ms=0.0, eager_ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                  max_abs_err=0.0)
     hyb_b = dict(hyb_f)
@@ -304,16 +319,16 @@ def check_norm_kernels(gn_sites, report, k_hybrid, batch=1, suffix=""):
                     e = check_close(f"{tag} backward {gname}", a, b, "norm", dn)
                     err_b = e if gname == "dx" else err_b
 
-            def lib_fwd(xin=x):
-                hh = F.group_norm(xin, 32, wgt.to(dtype), bias.to(dtype), 1e-5)
-                if fs is not None:
-                    hh = hh * (1 + fs[:, :, None, None]) + ft[:, :, None, None]
+            def lib_fwd(xin=x, w_=wgt, b_=bias, s_=fs, t_=ft):
+                hh = F.group_norm(xin, 32, w_.to(dtype), b_.to(dtype), 1e-5)
+                if s_ is not None:
+                    hh = hh * (1 + s_[:, :, None, None]) + t_[:, :, None, None]
                 return F.silu(hh) if silu else hh
 
-            def lib_fwd_bwd():
+            def lib_fwd_bwd(params=()):
                 xr = x.detach().requires_grad_(True)
                 with torch.enable_grad():
-                    return torch.autograd.grad(lib_fwd(xr), xr, gy)
+                    return torch.autograd.grad(lib_fwd(xr, *params), [xr, *params], gy)
 
             fwd = lambda: G.group_norm_forward(x, wgt, bias, fs, ft, silu)  # noqa: E731
             # timed as the main path calls it: x-only, no parameter-gradient sums
@@ -350,8 +365,22 @@ def check_norm_kernels(gn_sites, report, k_hybrid, batch=1, suffix=""):
                 for k, v in (("k3_ms", t_f), ("k3_library_ms", t_fl), ("k3_bound_ms", bound_f),
                              ("k4_ms", t_b), ("k4_library_ms", t_bl), ("k4_bound_ms", bound_b)):
                     cls[k] += n * v
+                # K4 as a train step calls it, with dγ, dβ (and dfs, dft at the
+                # FiLM sites), against the library's autograd with the weight
+                # leaves; the plain version computes the sums either way
+                bwd_sums = lambda: G.group_norm_backward(gy, x, wgt, bias, fs, ft, silu, m, i)  # noqa: E731
+                leaves = [t.clone().requires_grad_(True) for t in (wgt, bias, fs, ft)
+                          if t is not None]
+                t_t, t_te = graph_time_ms(bwd_sums), cuda_time_ms(bwd_sums)
+                t_tl = max(graph_time_ms(lambda: lib_fwd_bwd(leaves)) - t_fl, 0.0)
+                # read x and dy; write dx, dγ and dβ [C], and dfs and dft [B, C]
+                out_params = 2 * c + (2 * batch * c if fs is not None else 0)
+                bound_t = bound_b + out_params * item / HBM_BYTES_PER_S * 1e3
+                log(f"  {tag} K4 with the parameter sums: {t_t * 1e3:.1f} us (eager "
+                    f"{t_te * 1e3:.1f}) library {t_tl * 1e3:.1f} bound {bound_t * 1e3:.1f}")
                 for agg, vals, e in ((agg_f, (t_f, t_fe, t_fp, bound_f, t_fl), err_f),
-                                     (agg_b, (t_b, t_be, t_bp, bound_b, t_bl), err_b)):
+                                     (agg_b, (t_b, t_be, t_bp, bound_b, t_bl), err_b),
+                                     (agg_t, (t_t, t_te, t_bp, bound_t, t_tl), err_b)):
                     for k, v in zip(("ms", "eager_ms", "plain_ms", "bound_ms", "library_ms"),
                                     vals):
                         agg[k] += n * v
@@ -369,6 +398,7 @@ def check_norm_kernels(gn_sites, report, k_hybrid, batch=1, suffix=""):
                     hyb["max_abs_err"] = max(hyb["max_abs_err"], e)
     report["group_norm_forward" + suffix] = agg_f
     report["group_norm_backward" + suffix] = agg_b
+    report["group_norm_backward_train" + suffix] = agg_t
     report["group_norm_forward_bf16_hybrid" + suffix] = hyb_f
     report["group_norm_backward_bf16_hybrid" + suffix] = hyb_b
     report["group_norm_classes" + suffix] = classes
@@ -377,6 +407,9 @@ def check_norm_kernels(gn_sites, report, k_hybrid, batch=1, suffix=""):
         log(f"    {name} ({cls['sites']} sites): K3 {cls['k3_ms']:.4f} / {cls['k3_library_ms']:.4f}"
             f" / {cls['k3_bound_ms']:.4f}; K4 {cls['k4_ms']:.4f} / {cls['k4_library_ms']:.4f} / "
             f"{cls['k4_bound_ms']:.4f}")
+    log(f"  K4 with the parameter sums (a train step's call), fp32 device ms per step: "
+        f"{agg_t['ms']:.3f} (eager {agg_t['eager_ms']:.3f}) plain {agg_t['plain_ms']:.3f} library "
+        f"{agg_t['library_ms']:.3f} bound {agg_t['bound_ms']:.3f}")
     return rows
 
 
@@ -1252,6 +1285,250 @@ def run_restarts(workdir, checkpoint, gn_sites, ups, pools, k_hybrid, steps=10):
     return dict(launches=launches, wall_s=wall, log_lines=kept)
 
 
+# ---------------------------------------------------------------------------
+# phases 15-16: training
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = FLEET  # K4's times with the parameter sums are phase 11's at this batch
+TRAIN_WARM, TRAIN_TIMED = 2, 5
+# a train step on the card (kernels) against the CPU (plain versions): the
+# loss within 1e-4 relative; each gradient within 1e-3 of its leaf's largest
+# magnitude plus 1e-5 of the largest gradient anywhere (convolutions and
+# sums in another order; TF32 off)
+TRAIN_TOL = (1e-4, 1e-3, 1e-5)
+
+
+def train_counts(gn_sites, ups, pools, steps, remat=False):
+    """Launches of ``steps`` train steps: K3 and the forward resampling at
+    every site, K4 (with its parameter sums) and the backward resampling too.
+    With remat the forward runs again inside each ResBlock and AttentionBlock
+    during the backward: every site but the output norm."""
+    again = int(remat)
+    return {"group_norm_forward": (len(gn_sites) + again * (len(gn_sites) - 1)) * steps,
+            "group_norm_backward": len(gn_sites) * steps,
+            "upsample_nearest_2x": ((1 + again) * len(ups) + len(pools)) * steps,
+            "box_sum_2x": ((1 + again) * len(pools) + len(ups)) * steps}
+
+
+def run_training(n_params_preset, gn_sites, ups, pools):
+    """The trainer's step (``ToyTrainer``, what ``python -m
+    osmosis_tpu_torch.tools.train_toy_prior`` runs) at the preset model's
+    width, batch 4, fp32: TRAIN_WARM warm steps, then TRAIN_TIMED timed ones
+    with the launch counts zeroed before and asserted after; the busy share
+    over two more; then one step without and one with remat, each from a
+    reset memory peak."""
+    import dataclasses
+
+    import torch
+
+    from osmosis_tpu_torch.ops import group_norm as G
+    from osmosis_tpu_torch.tools import train_toy_prior as P
+
+    args = P.build_parser().parse_args(["--arch", "production", "--size", "256", "--channels",
+                                        "256", "--batch", str(TRAIN_BATCH)])
+    t0 = time.perf_counter()
+    tr = P.ToyTrainer(args, "cuda:0")
+    log(f"  toy_unet_config(256, 256, 'production'): {tr.n_params / 1e6:.1f}M params (the preset "
+        f"UNet: {n_params_preset / 1e6:.1f}M); built in {time.perf_counter() - t0:.1f} s")
+    if tr.n_params != n_params_preset:
+        raise AssertionError(f"the production toy config has {tr.n_params} params, the preset "
+                             f"{n_params_preset}")
+    film = sum(1 for site in gn_sites if site[3] == "film")
+    ema_before = torch.stack([e.norm() for e in tr.ema])
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_WARM):
+        tr.step()
+    torch.cuda.synchronize()
+    zero_counts()
+    G.group_norm_backward.param_sum_launches = G.group_norm_backward.film_sum_launches = 0
+    t0 = time.perf_counter()
+    losses = torch.stack([tr.step() for _ in range(TRAIN_TIMED)])
+    torch.cuda.synchronize()
+    s = (time.perf_counter() - t0) / TRAIN_TIMED
+    launches = read_counts()
+    sums = (G.group_norm_backward.param_sum_launches, G.group_norm_backward.film_sum_launches)
+    peak = torch.cuda.max_memory_allocated()
+    check_counts("train steps", launches, train_counts(gn_sites, ups, pools, TRAIN_TIMED))
+    if sums != (len(gn_sites) * TRAIN_TIMED, film * TRAIN_TIMED):
+        raise AssertionError(f"K4 computed its parameter sums {sums[0]} times and the FiLM sums "
+                             f"{sums[1]} times over {TRAIN_TIMED} steps, expected "
+                             f"{len(gn_sites)} and {film} a step")
+    finite = bool(torch.isfinite(losses).all()) and all(
+        bool(torch.isfinite(p.grad).all()) for p in tr.params)
+    moved = not torch.equal(torch.stack([e.norm() for e in tr.ema]), ema_before)
+    if not (finite and moved):
+        raise AssertionError(f"train steps: losses and gradients finite {finite}, EMA moved {moved}")
+    log(f"  train step, batch {TRAIN_BATCH}: {s:.4f} s a step, {s / TRAIN_BATCH:.4f} s an image "
+        f"({TRAIN_TIMED} timed after {TRAIN_WARM} warm); losses {[round(v, 4) for v in losses.tolist()]};"
+        f" peak memory {peak / 2 ** 30:.2f} GiB; launches {launches}, K4 with parameter sums "
+        f"{sums[0]} (FiLM sums {sums[1]}); loss and gradients finite, the EMA moved")
+    busy = device_busy_share(lambda: [tr.step() for _ in range(2)], 2, "train steps")
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        tr.step()
+    flop = fc.get_total_flops()
+    log(f"  work of a train step (convolutions and matrix products, counted by PyTorch): "
+        f"{flop / 1e12:.3f} TFLOP, {flop / s / 1e12:.1f} TFLOP/s at {s:.4f} s a step (peak "
+        f"{FP32_FLOPS / 1e12:.0f})")
+
+    remat = {}
+    for on in (False, True):
+        tr.model.cfg = dataclasses.replace(tr.cfg, remat=on)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        tr.step()
+        torch.cuda.synchronize()
+        remat[on] = dict(seconds=time.perf_counter() - t0, peak_bytes=torch.cuda.max_memory_allocated(),
+                         launches=read_counts())
+        check_counts(f"train step, remat {on}", remat[on]["launches"],
+                     train_counts(gn_sites, ups, pools, 1, on))
+    tr.model.cfg = tr.cfg
+    log(f"  one train step without remat: {remat[False]['seconds']:.4f} s, peak "
+        f"{remat[False]['peak_bytes'] / 2 ** 30:.2f} GiB; with remat: {remat[True]['seconds']:.4f} s, "
+        f"peak {remat[True]['peak_bytes'] / 2 ** 30:.2f} GiB, launches {remat[True]['launches']}")
+    if not remat[True]["peak_bytes"] < remat[False]["peak_bytes"]:
+        raise AssertionError("remat did not lower the peak memory of a train step")
+    return dict(n_params=tr.n_params, seconds_per_step=s, seconds_per_image=s / TRAIN_BATCH,
+                losses=losses.tolist(), peak_bytes=peak, launches=launches,
+                param_sum_launches=sums[0], film_sum_launches=sums[1], busy=busy, flop=flop,
+                remat={str(k): v for k, v in remat.items()})
+
+
+def check_train_step_card_vs_cpu():
+    """One toy-prior train step from the same weights and batch on the card
+    (kernels) and on the CPU (plain versions): the loss and every weight
+    gradient within TRAIN_TOL."""
+    import torch
+
+    from osmosis_tpu_torch.diffusion.schedules import make_schedule
+    from osmosis_tpu_torch.models.convert import init_unet
+    from osmosis_tpu_torch.tools import train_toy_prior as P
+
+    cfg = P.toy_unet_config(32, 64, "toy")
+    ref = randomize_zero_inits(init_unet(cfg, seed=1), seed=2)
+    gen = torch.Generator().manual_seed(3)
+    batch = P.draw_batch(gen, P.build_parser().parse_args(["--batch", "8", "--size", "32"]), "cpu")
+    consts = make_schedule("linear", 1000).device_constants()
+    out = {}
+    before = read_counts()
+    for dev in ("cpu", "cuda"):
+        m = init_unet(cfg, seed=1)
+        m.load_state_dict(ref.state_dict())
+        m = m.to(device=dev, memory_format=torch.channels_last)
+        loss = P.diffusion_loss(m, P.Batch(*(v.to(dev) for v in batch)),
+                                torch.as_tensor(consts["sqrt_alphas_cumprod"], device=dev),
+                                torch.as_tensor(consts["sqrt_one_minus_alphas_cumprod"], device=dev))
+        loss.backward()
+        out[dev] = (loss.item(), {n: p.grad.cpu() for n, p in m.named_parameters()})
+    after = read_counts()
+    if not all(after[k] > before[k] for k in after):
+        raise AssertionError(f"the card's train step did not launch every kernel: {before} -> {after}")
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
+    tol_loss, tol_rel, tol_top = TRAIN_TOL
+    loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+    top = max(g.abs().max().item() for g in g_cpu.values())
+    worst = 0.0
+    for n, g in g_cpu.items():
+        err = (g_gpu[n] - g).abs().max().item()
+        limit = tol_rel * g.abs().max().item() + tol_top * top
+        if not err <= limit:
+            raise AssertionError(f"train step card vs CPU: {n} gradient off by {err:.3e} > {limit:.3e}")
+        worst = max(worst, err / limit)
+    if not loss_err <= tol_loss:
+        raise AssertionError(f"train step card vs CPU: loss {l_gpu} against {l_cpu}")
+    log(f"  toy train step card vs CPU (batch 8, 32x32): loss {l_gpu:.6f} / {l_cpu:.6f} "
+        f"({loss_err:.2e} relative, limit {tol_loss}); {len(g_cpu)} gradients, the worst at "
+        f"{worst:.3f} of its limit ({tol_rel} of its leaf's largest + {tol_top} of the largest)")
+    return dict(loss_rel_err=loss_err, worst_grad_share_of_limit=worst)
+
+
+TOY_UNET = dict(image_size=32, num_channels=64, channel_mult="1,2", attention_resolutions="8",
+                num_res_blocks=2, num_head_channels=32)  # toy_unet_config(32, 64, "toy")
+
+
+def run_toy_loop(workdir):
+    """The trainer's CLI at the toy size, in-process (``train`` is what
+    ``main`` runs): 300 steps at batch 128, health check on; the last chunk's
+    mean loss must fall under 0.8 of the first's. Then a restore run of the
+    preset at toy size (10 steps, clip_denoised: 300 steps leave the EMA
+    mostly at its initial weights, on which an unclipped guided chain goes to
+    NaN) whose ``model_path`` is the EMA checkpoint: it must load it, with no
+    random-init fallback."""
+    import contextlib
+    import io
+
+    import torch
+    import yaml
+
+    import osmosis_tpu_torch.pipelines.restore as R
+    from osmosis_tpu_torch.models.convert import load_params_msgpack, state_dict_from_jax
+    from osmosis_tpu_torch.models.unet import unet_config_from_yaml
+    from osmosis_tpu_torch.tools import train_toy_prior as P
+
+    out = os.path.join(workdir, "toy", "toy_prior.msgpack")
+    argv = ["--size", "32", "--channels", "64", "--batch", "128", "--steps", "300", "--chunk",
+            "50", "--out", out]
+    zero_counts()
+    t0 = time.perf_counter()
+    report, chunks = P.train(P.build_parser().parse_args(argv))
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    log(f"  train_toy_prior {' '.join(argv[:-2])}: {wall:.1f} s, "
+        f"{report['train_steps_per_sec']} steps/s; chunk mean losses "
+        f"{[round(c, 4) for c in chunks]}; launches {launches}")
+    log(f"  report: {json.dumps(report)}")
+    if not all(launches.values()):
+        raise AssertionError(f"the toy run did not launch every kernel: {launches}")
+    if not chunks[-1] < 0.8 * chunks[0]:
+        raise AssertionError(f"the toy loss did not fall: {chunks[0]:.4f} -> {chunks[-1]:.4f}")
+
+    path, cfg = write_preset(workdir, "osmosis_sample_config.yaml", out, name="toy_restore.yaml",
+                             timestep_respacing=10, clip_denoised=True)
+    cfg["unet_model"].update(TOY_UNET)
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    loaded = []
+    load_unet = R.load_unet
+    R.load_unet = lambda *a, **kw: loaded.append(load_unet(*a, **kw)) or loaded[-1]
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            rd = R.run_restoration(path, device="cuda:0")
+    finally:
+        R.load_unet = load_unet
+    if "Randomly initialize" in printed.getvalue():
+        raise AssertionError("the restore run fell back to random weights: "
+                             + printed.getvalue()[-2000:])
+    want = state_dict_from_jax(load_params_msgpack(out), unet_config_from_yaml(cfg["unet_model"]))
+    for name, v in loaded[0].state_dict().items():
+        if not torch.equal(v.cpu(), want[name]):
+            raise AssertionError(f"the restore run's {name} is not the EMA checkpoint's")
+    row = check_run_dir(rd, RESTORE_FILES)
+    log(f"  restore at 32x32 from the EMA checkpoint: loaded ({len(want)} tensors equal the "
+        f"file's), run dir complete, chain_finite {row['chain_finite']}, final_loss "
+        f"{row['final_loss']}")
+    return dict(report=report, chunk_losses=chunks, wall_s=wall, launches=launches,
+                restore_chain_finite=row["chain_finite"])
+
+
+def train_row(name, training, report):
+    """What the training path adds to a kernel's numbers: its launches over
+    the timed train steps, and for K4 its phase-11 times with the parameter
+    sums (per train step at batch TRAIN_BATCH). K1-K3 run there at the sites
+    and shapes of the batch-4 guided step, whose times are the b4_* keys."""
+    row = dict(train_launches=training["launches"][name])
+    if name == "group_norm_backward":
+        t = report["group_norm_backward_train_b4"]
+        row.update(train_param_sums_max_abs_err=t["max_abs_err"], train_param_sums_ms=t["ms"],
+                   train_param_sums_eager_ms=t["eager_ms"], train_param_sums_plain_ms=t["plain_ms"],
+                   train_param_sums_bound_ms=t["bound_ms"],
+                   train_param_sums_library_ms=t["library_ms"])
+    return row
+
+
 def main():
     try:
         import torch
@@ -1276,14 +1553,14 @@ def main():
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/14] device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
+    log(f"[1/16] device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     built = _build.build_all()
-    log(f"[2/14] built CUDA kernels {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/16] built CUDA kernels {sorted(built)} in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/14] kernels against their plain versions at the main path's shapes")
+    log("[3/16] kernels against their plain versions at the main path's shapes")
     gn_sites, ups, pools = main_path_sites(UNetConfig())
     k_hybrid = int(load_yaml(os.path.join(ROOT, "configs", "osmosis_sample_hybrid_config.yaml"))[
         "conditioning"]["params"]["x_prev_every"])
@@ -1291,12 +1568,12 @@ def main():
     rows = check_resample_kernels(ups, pools, report, k_hybrid)
     rows += check_norm_kernels(gn_sites, report, k_hybrid)
 
-    log("[4/14] tiny UNet: card (kernels) against CPU (plain versions), TF32 off")
+    log("[4/16] tiny UNet: card (kernels) against CPU (plain versions), TF32 off")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     tiny = check_tiny_unet()
 
-    log(f"[5/14] main path at full width: preset, {STEPS} respaced steps, one image")
+    log(f"[5/16] main path at full width: preset, {STEPS} respaced steps, one image")
     build_dir = os.path.join(ROOT, "osmosis_tpu_torch", "_build")
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
@@ -1313,32 +1590,32 @@ def main():
             "group_norm_backward": len(gn_sites) * STEPS})
         ckpt = main_path["checkpoint"]
 
-        log(f"[6/14] bf16 fast path at full width: the hybrid preset, ddim{STEPS}, one image")
+        log(f"[6/16] bf16 fast path at full width: the hybrid preset, ddim{STEPS}, one image")
         hybrid, model, hybrid_cfg = run_bf16_hybrid(workdir, ckpt, gn_sites, ups, pools)
-        log("[7/14] bf16 timing by step kind, busy share, UNet rate")
+        log("[7/16] bf16 timing by step kind, busy share, UNet rate")
         hybrid.update(time_bf16_steps(model, hybrid_cfg))
         del model
         log(f"  bf16 seconds per warm step: x_prev {hybrid['x_prev_seconds_per_step']:.4f}, x0 "
             f"{hybrid['x0_seconds_per_step']:.4f}; {smi}")
 
-        log(f"[8/14] RGBD prior sampler at full width: {STEPS} steps, one image, fp32")
+        log(f"[8/16] RGBD prior sampler at full width: {STEPS} steps, one image, fp32")
         prior = run_prior(workdir, ckpt, gn_sites, ups, pools, steps=STEPS)
         log(f"  seconds per prior step: {prior['seconds_per_step']:.4f}; {smi}")
 
-        log("[9/14] rgb_guidance at full width: 10 steps, one image, fp32")
+        log("[9/16] rgb_guidance at full width: 10 steps, one image, fp32")
         rgb = run_rgb_guidance(workdir, ckpt, gn_sites, ups, pools, steps=10)
 
-        log(f"[10/14] haze and simulation presets at full width: {STEPS} steps, one image each, "
+        log(f"[10/16] haze and simulation presets at full width: {STEPS} steps, one image each, "
             "fp32")
         presets = run_haze_and_simulation(workdir, ckpt, gn_sites, ups, pools)
 
-        log(f"[11/14] kernels at batch {FLEET} against their plain versions at the main path's "
+        log(f"[11/16] kernels at batch {FLEET} against their plain versions at the main path's "
             "shapes")
         gn4, ups4, pools4 = main_path_sites(UNetConfig(), batch=FLEET)
         rows += check_resample_kernels(ups4, pools4, report, k_hybrid, suffix="_b4")
         rows += check_norm_kernels(gn4, report, k_hybrid, batch=FLEET, suffix="_b4")
 
-        log(f"[12/14] the batch-{FLEET} fleet at full width: fp32 preset ({STEPS} steps) and bf16 "
+        log(f"[12/16] the batch-{FLEET} fleet at full width: fp32 preset ({STEPS} steps) and bf16 "
             f"hybrid preset (ddim{STEPS}), {FLEET} seeded images, clip_denoised")
         fleet = run_fleet(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
         ucfg = unet_config_from_yaml(load_yaml(os.path.join(
@@ -1352,13 +1629,25 @@ def main():
         del models
         log(f"  {smi}")
 
-        log(f"[13/14] segments and resume: bf16 hybrid preset, ddim{STEPS}, progress_segments 4, "
+        log(f"[13/16] segments and resume: bf16 hybrid preset, ddim{STEPS}, progress_segments 4, "
             "chain_checkpoint, a crash after the first boundary")
         segments = run_segments_and_resume(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
 
-        log("[14/14] best_of 2 with phi_jitter, global_N 2 with global_eta_scale 0.5, async_save:"
+        log("[14/16] best_of 2 with phi_jitter, global_N 2 with global_eta_scale 0.5, async_save:"
             " bf16 hybrid preset, ddim10, one image")
         restarts = run_restarts(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
+
+        log(f"[15/16] training at full width: toy_unet_config(256, 256, 'production'), batch "
+            f"{TRAIN_BATCH}, fp32, Adam and the EMA")
+        training = run_training(main_path["n_params"], gn_sites, ups, pools)
+        log(f"  seconds per train step {training['seconds_per_step']:.4f} (batch {TRAIN_BATCH}), "
+            f"per image {training['seconds_per_image']:.4f}; peak {training['peak_bytes'] / 2 ** 30:.2f}"
+            f" GiB; {smi}")
+
+        log("[16/16] the toy loop: train_toy_prior at 32x32, 300 steps at batch 128, then a "
+            "restore run from its EMA checkpoint; a tiny train step card vs CPU")
+        toy = run_toy_loop(workdir)
+        toy["card_vs_cpu"] = check_train_step_card_vs_cpu()
 
     meta = {
         "upsample_nearest_2x": ("cuda", "osmosis_tpu_torch/ops/csrc/upsample.cu",
@@ -1397,12 +1686,14 @@ def main():
                             b4_bf16_hybrid_library_ms_per_step=hyb4["library_ms"],
                             b4_bf16_hybrid_max_abs_err=hyb4["max_abs_err"],
                             fleet_fp32_launches=fleet["float32"]["launches"][name],
-                            fleet_bf16_launches=fleet["bfloat16"]["launches"][name]))
+                            fleet_bf16_launches=fleet["bfloat16"]["launches"][name],
+                            **train_row(name, training, report)))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_report.json"), "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, kernels=kernels, rows=rows, tiny_unet=tiny,
                        main_path=main_path, bf16_hybrid=hybrid, prior=prior, rgb_guidance=rgb,
                        presets=presets, fleet=fleet, segments=segments, restarts=restarts,
+                       training=training, toy=toy,
                        seconds=time.perf_counter() - t_start), f, indent=1, default=str)
     log(f"  per-shape rows in results/chip_smoke_report.json; "
         f"total {time.perf_counter() - t_start:.1f} s")
@@ -1427,6 +1718,14 @@ def main():
             f"{k['b4_bf16_hybrid_library_ms_per_step']:.3f} / "
             f"{k['b4_bf16_hybrid_bound_ms_per_step']:.3f}; launches {k['fleet_fp32_launches']}, "
             f"{k['fleet_bf16_launches']}")
+    log(f"  training, batch {TRAIN_BATCH}: launches over {TRAIN_TIMED} timed steps (K1-K3 run "
+        f"at the batch-{FLEET} sites above); K4 with the parameter sums, device ms per train "
+        "step (kernel / plain / library / bound):")
+    for k in kernels:
+        sums = "" if "train_param_sums_ms" not in k else (
+            f"; {k['train_param_sums_ms']:.3f} / {k['train_param_sums_plain_ms']:.3f} / "
+            f"{k['train_param_sums_library_ms']:.3f} / {k['train_param_sums_bound_ms']:.3f}")
+        log(f"    {k['name']}: launches {k['train_launches']}{sums}")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,10 +1,16 @@
-"""Checkpoint loading for the port's UNet.
+"""Checkpoints of the port's UNet, in both packages' formats.
 
 The reference checkpoint is a PyTorch state_dict (``osmosis_outdoor.pt``) whose
 names are the port's module names, so it loads with ``load_state_dict`` as it
-is. :func:`state_dict_from_jax` carries weights the other way, from the JAX
-package's parameter tree (as numpy arrays) into this state_dict: the exact
-inverse of ``osmosis_tpu.models.convert.convert_state_dict``.
+is. The JAX package keeps a parameter tree (``{"params": {...}}``, conv kernels
+HWIO, dense kernels ``[in, out]``, the qkv channels part-major) and saves it as
+flax msgpack. :func:`state_dict_from_jax` carries such a tree into this
+state_dict and :func:`params_from_state_dict` carries it back (the port's copy
+of ``osmosis_tpu.models.convert.convert_state_dict``); each is the other's
+exact inverse. :func:`save_params_msgpack` and :func:`load_params_msgpack` read
+and write the JAX package's ``.msgpack`` files through the port's own msgpack
+codec (``utils/msgpack.py``), so the two packages read each other's
+checkpoints, and :func:`unet_from_msgpack` builds a UNet from such a file.
 :func:`cast_params_half` is the counterpart of the JAX package's
 ``cast_params_half``: the bf16 torso's weights.
 """
@@ -13,12 +19,12 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import pickle
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from ..utils import msgpack
 from .nn import GroupNorm32
 from .unet import UNetConfig, UNetModel, build_plan
 
@@ -39,13 +45,21 @@ def _qkv_permutation(channels: int, num_heads: int, legacy: bool) -> np.ndarray:
     return perm
 
 
+def _np(a) -> np.ndarray:
+    """A leaf (numpy array, or tensor of any float dtype) as fp32 numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().cpu().numpy()
+    return np.asarray(a, dtype=np.float32)
+
+
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, dtype=np.float32))
+    return torch.from_numpy(np.array(_np(a), dtype=np.float32))
 
 
 def state_dict_from_jax(params: Dict[str, Any], cfg: UNetConfig) -> Dict[str, torch.Tensor]:
-    """JAX UNetModel params (nested dict of numpy arrays, with or without the
-    top-level ``"params"`` key) -> this package's UNet state_dict."""
+    """JAX UNetModel params (nested dict of numpy arrays or tensors, with or
+    without the top-level ``"params"`` key) -> this package's UNet state_dict,
+    fp32 on the CPU."""
     p = params.get("params", params)
     legacy = not cfg.use_new_attention_order
     sd: Dict[str, torch.Tensor] = {}
@@ -55,11 +69,11 @@ def state_dict_from_jax(params: Dict[str, Any], cfg: UNetConfig) -> Dict[str, to
         sd[f"{prefix}.bias"] = _t(leaf["bias"])
 
     def conv(prefix, leaf):  # HWIO -> OIHW
-        sd[f"{prefix}.weight"] = _t(np.transpose(np.asarray(leaf["kernel"]), (3, 2, 0, 1)))
+        sd[f"{prefix}.weight"] = _t(np.transpose(_np(leaf["kernel"]), (3, 2, 0, 1)))
         sd[f"{prefix}.bias"] = _t(leaf["bias"])
 
     def dense(prefix, leaf):  # [in, out] -> [out, in]
-        sd[f"{prefix}.weight"] = _t(np.asarray(leaf["kernel"]).T)
+        sd[f"{prefix}.weight"] = _t(_np(leaf["kernel"]).T)
         sd[f"{prefix}.bias"] = _t(leaf["bias"])
 
     dense("time_embed.0", p["time_dense0"])
@@ -82,12 +96,12 @@ def state_dict_from_jax(params: Dict[str, Any], cfg: UNetConfig) -> Dict[str, to
             perm = _qkv_permutation(ch, lay["heads"], legacy)
             w = np.empty((3 * ch, ch), np.float32)
             b = np.empty((3 * ch,), np.float32)
-            w[perm] = np.asarray(leaf["qkv"]["kernel"]).T
-            b[perm] = np.asarray(leaf["qkv"]["bias"])
+            w[perm] = _np(leaf["qkv"]["kernel"]).T
+            b[perm] = _np(leaf["qkv"]["bias"])
             norm(f"{prefix}.norm", leaf["norm"])
             sd[f"{prefix}.qkv.weight"] = _t(w[:, :, None])
             sd[f"{prefix}.qkv.bias"] = _t(b)
-            sd[f"{prefix}.proj_out.weight"] = _t(np.asarray(leaf["proj"]["kernel"]).T[:, :, None])
+            sd[f"{prefix}.proj_out.weight"] = _t(_np(leaf["proj"]["kernel"]).T[:, :, None])
             sd[f"{prefix}.proj_out.bias"] = _t(leaf["proj"]["bias"])
         elif kind == "down":
             conv(f"{prefix}.op", leaf["op"])
@@ -96,18 +110,106 @@ def state_dict_from_jax(params: Dict[str, Any], cfg: UNetConfig) -> Dict[str, to
         else:
             raise ValueError(kind)
 
-    input_blocks, middle_block, output_blocks = build_plan(cfg)
-    for i, block in enumerate(input_blocks):
-        for j, lay in enumerate(block):
-            layer(lay, f"input_blocks.{i}.{j}", f"in_{i}_{j}")
-    for j, lay in enumerate(middle_block):
-        layer(lay, f"middle_block.{j}", f"mid_{j}")
-    for i, block in enumerate(output_blocks):
-        for j, lay in enumerate(block):
-            layer(lay, f"output_blocks.{i}.{j}", f"out_{i}_{j}")
+    _walk_plan(cfg, layer)
     norm("out.0", p["out_norm"])
     conv("out.2", p["out_conv"])
     return sd
+
+
+def _walk_plan(cfg: UNetConfig, visit) -> None:
+    """``visit(layer, torch_prefix, jax_name)`` for every layer of the plan."""
+    input_blocks, middle_block, output_blocks = build_plan(cfg)
+    for i, block in enumerate(input_blocks):
+        for j, lay in enumerate(block):
+            visit(lay, f"input_blocks.{i}.{j}", f"in_{i}_{j}")
+    for j, lay in enumerate(middle_block):
+        visit(lay, f"middle_block.{j}", f"mid_{j}")
+    for i, block in enumerate(output_blocks):
+        for j, lay in enumerate(block):
+            visit(lay, f"output_blocks.{i}.{j}", f"out_{i}_{j}")
+
+
+def params_from_state_dict(sd: Dict[str, Any], cfg: UNetConfig) -> Dict[str, Any]:
+    """This package's UNet state_dict (tensors or numpy arrays) -> the JAX
+    UNetModel's ``{"params": {...}}`` tree of fp32 numpy arrays: the port's copy
+    of ``osmosis_tpu.models.convert.convert_state_dict`` (:99-137), conv
+    kernels OIHW -> HWIO, linear weights transposed, the legacy qkv channels
+    permuted to part-major. The exact inverse of :func:`state_dict_from_jax`."""
+    sd = {k: _np(v) for k, v in sd.items()}
+    legacy = not cfg.use_new_attention_order
+
+    def norm(prefix):
+        return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
+
+    def conv(prefix):  # OIHW -> HWIO
+        return {"kernel": np.ascontiguousarray(np.transpose(sd[f"{prefix}.weight"], (2, 3, 1, 0))),
+                "bias": sd[f"{prefix}.bias"]}
+
+    def dense(prefix):  # [out, in] -> [in, out]
+        return {"kernel": np.ascontiguousarray(sd[f"{prefix}.weight"].T),
+                "bias": sd[f"{prefix}.bias"]}
+
+    params: Dict[str, Any] = {
+        "time_dense0": dense("time_embed.0"),
+        "time_dense1": dense("time_embed.2"),
+        "out_norm": norm("out.0"),
+        "out_conv": conv("out.2"),
+    }
+
+    def layer(lay: dict, prefix: str, name: str):
+        kind = lay["kind"]
+        if kind == "conv_in":
+            params[name] = conv(prefix)
+        elif kind in ("res", "res_down", "res_up"):
+            params[name] = {
+                "in_norm": norm(f"{prefix}.in_layers.0"),
+                "in_conv": conv(f"{prefix}.in_layers.2"),
+                "emb_proj": dense(f"{prefix}.emb_layers.1"),
+                "out_norm": norm(f"{prefix}.out_layers.0"),
+                "out_conv": conv(f"{prefix}.out_layers.3"),
+            }
+            if lay["in_ch"] != lay["out_ch"]:
+                params[name]["skip"] = conv(f"{prefix}.skip_connection")
+        elif kind == "attn":
+            perm = _qkv_permutation(lay["ch"], lay["heads"], legacy)
+            qkv_w = sd[f"{prefix}.qkv.weight"][:, :, 0]  # [3C, C]
+            params[name] = {
+                "norm": norm(f"{prefix}.norm"),
+                "qkv": {"kernel": np.ascontiguousarray(qkv_w[perm].T),
+                        "bias": sd[f"{prefix}.qkv.bias"][perm]},
+                "proj": {"kernel": np.ascontiguousarray(sd[f"{prefix}.proj_out.weight"][:, :, 0].T),
+                         "bias": sd[f"{prefix}.proj_out.bias"]},
+            }
+        elif kind == "down":
+            params[name] = {"op": conv(f"{prefix}.op")}
+        elif kind == "up":
+            params[name] = {"conv": conv(f"{prefix}.conv")}
+        else:
+            raise ValueError(kind)
+
+    _walk_plan(cfg, layer)
+    return {"params": params}
+
+
+def save_params_msgpack(params: Dict[str, Any], path: str) -> None:
+    """Write a parameter tree as the JAX package's ``save_params_msgpack``
+    does (flax msgpack, the same bytes)."""
+    with open(path, "wb") as f:
+        msgpack.dump(params, f.write)
+
+
+def load_params_msgpack(path: str) -> Dict[str, Any]:
+    """Read a ``.msgpack`` parameter tree (the JAX package's
+    ``load_params_msgpack``): numpy arrays, bfloat16 leaves as tensors."""
+    with open(path, "rb") as f:
+        return msgpack.unpackb(f.read())
+
+
+def is_orbax_checkpoint(path: Optional[str]) -> bool:
+    """The JAX loader's test for an orbax checkpoint directory."""
+    return bool(path) and (path.endswith(".orbax") or (
+        os.path.isdir(os.path.join(path, ""))
+        and os.path.exists(os.path.join(path, "_CHECKPOINT_METADATA"))))
 
 
 def init_unet(cfg: UNetConfig, seed: int = 0) -> UNetModel:
@@ -132,22 +234,61 @@ def cast_params_half(model: UNetModel, dtype: torch.dtype = torch.bfloat16) -> U
     return model
 
 
-def load_unet(model_path: Optional[str], cfg: UNetConfig, device, seed: int = 0,
-              dtype: Optional[torch.dtype] = None) -> UNetModel:
-    """Load a reference ``.pt`` state_dict into the port's UNet on ``device``
-    in channels_last memory, weights frozen. Falls back to seeded random init
-    with the reference's warning (unet.py:94-98) when the file is missing or
-    does not load. ``dtype`` (default ``cfg.dtype``) is the torso dtype; a
-    bfloat16 torso gets :func:`cast_params_half`."""
-    if dtype is not None:
-        cfg = dataclasses.replace(cfg, dtype=dtype)
+class CheckpointMismatch(RuntimeError):
+    """A checkpoint that reads but does not fit the UNet's config."""
+
+
+def unet_from_msgpack(path: str, cfg: UNetConfig, seed: int = 0) -> UNetModel:
+    """A UNet on the CPU, fp32 and trainable, holding the weights of a
+    ``.msgpack`` parameter tree (carried over by :func:`state_dict_from_jax`).
+    A missing or unreadable file raises; a tree that does not fit ``cfg``
+    raises :class:`CheckpointMismatch`, as the JAX model would when it
+    applies it."""
+    params = load_params_msgpack(path)
     model = init_unet(cfg, seed)
     try:
-        if not (model_path and os.path.exists(model_path)):
+        model.load_state_dict(state_dict_from_jax(params, cfg))
+    except (KeyError, ValueError, RuntimeError) as e:
+        raise CheckpointMismatch(f"{path} does not fit the UNet config: {e!r}") from e
+    return model
+
+
+def load_unet(model_path: Optional[str], cfg: UNetConfig, device, seed: int = 0,
+              dtype: Optional[torch.dtype] = None) -> UNetModel:
+    """Load a checkpoint into the port's UNet on ``device`` in channels_last
+    memory, weights frozen: what the JAX package's ``load_unet_params``
+    (:203-227) accepts.
+
+    * ``.msgpack``: :func:`unet_from_msgpack`; a tree that does not fit
+      ``cfg`` raises;
+    * an orbax directory raises ``NotImplementedError``: the JAX package reads
+      it with orbax, which the port does without;
+    * any other existing path: a reference ``.pt`` state_dict.
+
+    Any other failure (a missing or unreadable file) falls back to seeded
+    random init with the reference's warning (unet.py:94-98). ``dtype``
+    (default ``cfg.dtype``) is the torso dtype; a bfloat16 torso gets
+    :func:`cast_params_half`."""
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    if is_orbax_checkpoint(model_path):
+        raise NotImplementedError(
+            f"{model_path} is an orbax checkpoint: the port reads .msgpack and .pt only "
+            "(ROADMAP queue 1, orbax reading); save it as .msgpack with the JAX package's "
+            "save_params_msgpack")
+    try:
+        if model_path and model_path.endswith(".msgpack"):
+            model = unet_from_msgpack(model_path, cfg, seed)
+        elif model_path and os.path.exists(model_path):
+            model = init_unet(cfg, seed)
+            model.load_state_dict(torch.load(model_path, map_location="cpu", weights_only=True))
+        else:
             raise FileNotFoundError(model_path)
-        model.load_state_dict(torch.load(model_path, map_location="cpu", weights_only=True))
-    except (OSError, RuntimeError, pickle.UnpicklingError) as e:
+    except CheckpointMismatch:
+        raise
+    except Exception as e:  # the reference's broad fallback, reported as it does
         print(f"Got exception: {e} / Randomly initialize")
+        model = init_unet(cfg, seed)
     if cfg.dtype != torch.float32:
         cast_params_half(model, cfg.dtype)
     model.requires_grad_(False).eval()

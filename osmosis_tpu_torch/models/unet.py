@@ -36,6 +36,7 @@ from typing import Any, Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import parse_attention_resolutions, parse_channel_mult
 from .nn import GroupNorm32, avg_pool_2x, timestep_embedding, upsample_nearest_2x, zero_module
@@ -59,6 +60,10 @@ class UNetConfig:
     resblock_updown: bool = True
     use_new_attention_order: bool = False
     dtype: torch.dtype = torch.float32  # the torso dtype: float32 or bfloat16
+    # recompute each ResBlock and AttentionBlock in the backward instead of
+    # keeping its activations (the JAX model's nn.remat, the config's
+    # use_checkpoint): the same values, less memory, one more forward
+    remat: bool = False
 
     @property
     def time_embed_dim(self) -> int:
@@ -76,7 +81,8 @@ class UNetConfig:
 
 def unet_config_from_yaml(unet_model: Dict[str, Any], **overrides) -> UNetConfig:
     """Reference ``unet_model`` config dict -> UNetConfig (``unet.py:66-98``):
-    pretrain_model 'osmosis' forces the 4-in / 8-out head."""
+    pretrain_model 'osmosis' forces the 4-in / 8-out head; ``use_checkpoint``
+    turns on ``remat``, as the JAX restore pipeline reads it."""
     image_size = unet_model["image_size"]
     learn_sigma = unet_model.get("learn_sigma", False)
     if unet_model.get("pretrain_model", "") == "osmosis":
@@ -100,6 +106,7 @@ def unet_config_from_yaml(unet_model: Dict[str, Any], **overrides) -> UNetConfig
         use_scale_shift_norm=unet_model.get("use_scale_shift_norm", False),
         resblock_updown=unet_model.get("resblock_updown", False),
         use_new_attention_order=unet_model.get("use_new_attention_order", False),
+        remat=bool(unet_model.get("use_checkpoint", False)),
     )
     cfg.update(overrides)
     return UNetConfig(**cfg)
@@ -315,9 +322,13 @@ class UNetModel(nn.Module):
             GroupNorm32(ch), nn.SiLU(), zero_module(_conv3x3(ch, cfg.out_channels))
         )
 
-    @staticmethod
-    def _run_layer(layer: nn.Module, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        return layer(h, emb) if isinstance(layer, ResBlock) else layer(h)
+    def _run_layer(self, layer: nn.Module, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+        args = (h, emb) if isinstance(layer, ResBlock) else (h,)
+        if (self.cfg.remat and torch.is_grad_enabled()
+                and isinstance(layer, (ResBlock, AttentionBlock))):
+            # the blocks draw no random numbers, so no RNG state is kept
+            return checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=False)
+        return layer(*args)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
         """``x`` NHWC [B, H, W, in_channels], ``timesteps`` [B] -> NHWC

@@ -29,7 +29,9 @@ Tensors are NCHW in ``channels_last`` memory, so ``x.permute(0, 2, 3, 1)`` is
 the contiguous [B, H, W, C] that the kernels read. A wrapper runs the plain
 PyTorch version only for a tensor on the CPU; for a CUDA tensor it launches
 its kernels or raises. Each call that launches adds one to ``launches`` and
-the number of device kernels it launched to ``kernel_launches``.
+the number of device kernels it launched to ``kernel_launches``; K4 also
+counts its launches that computed the parameter sums (``param_sum_launches``)
+and, of those, the ones with the FiLM sums (``film_sum_launches``).
 """
 
 from __future__ import annotations
@@ -404,6 +406,8 @@ def group_norm_backward(gy, x, weight, bias, fs, ft, silu, mean_c, inv_c,
     _build.check(lib, code, "group_norm backward")
     group_norm_backward.launches += 1
     group_norm_backward.kernel_launches += p.kernels
+    group_norm_backward.param_sum_launches += int(param_grads)
+    group_norm_backward.film_sum_launches += int(sums == 4)
     if not param_grads:
         return dx, None, None, None, None
     # per-batch sums [B, C] -> [C]; at B = 1 a view, no device op
@@ -416,6 +420,8 @@ def group_norm_backward(gy, x, weight, bias, fs, ft, silu, mean_c, inv_c,
 
 group_norm_backward.launches = 0
 group_norm_backward.kernel_launches = 0
+group_norm_backward.param_sum_launches = 0  # launches that computed dγ, dβ (training)
+group_norm_backward.film_sum_launches = 0   # ... and the FiLM dfs, dft (sums = 4)
 
 
 class _GroupNormAct(torch.autograd.Function):

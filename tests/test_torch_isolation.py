@@ -1,6 +1,9 @@
 """The port stands alone: importing every module of ``osmosis_tpu_torch``
 loads neither JAX, Flax, ml_dtypes nor the JAX package, and no source of the
-port or ``chip_smoke.py`` imports them, or Triton: the kernels are CUDA C++."""
+port or ``chip_smoke.py`` imports them, or Triton: the kernels are CUDA C++.
+Nor do they import the repo's ``tools/`` scripts (which import JAX), or the
+``msgpack``, ``optax`` and ``orbax`` packages, which the card's machine lacks:
+the port reads and writes checkpoints with its own codec."""
 
 import os
 import pkgutil
@@ -26,7 +29,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ml_dtypes', 'osmosis_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ml_dtypes', 'osmosis_tpu', 'tools', 'msgpack', 'optax', 'orbax'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -59,4 +62,9 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 def test_no_source_imports_triton():
     offenders = _importers(["triton"])
+    assert not offenders, offenders
+
+
+def test_no_source_imports_the_tools_scripts_or_checkpoint_packages():
+    offenders = _importers(["tools", "msgpack", "optax", "orbax"])
     assert not offenders, offenders

@@ -211,3 +211,47 @@ def test_bf16_tiny_unet_through_the_kernels_matches_the_plain_versions(cuda, mon
         err = (a - r).abs()
         assert err.max().item() <= 3e-2 * scale, f"{what}: max err {err.max().item()}"
         assert err.mean().item() <= 5e-3 * scale, f"{what}: mean err {err.mean().item()}"
+
+
+def test_tiny_train_step_through_the_kernels_matches_the_cpu(cuda):
+    """One toy-prior train step (loss and every weight gradient, K4 with its
+    parameter sums) on the card against the same step on the CPU (plain
+    versions), TF32 off. Bars: the loss within 1e-4 relative; each gradient
+    within 1e-3 of its leaf's largest magnitude plus 1e-5 of the largest
+    gradient anywhere (convolutions and sums in another order)."""
+    from osmosis_tpu_torch.models.convert import init_unet
+    from osmosis_tpu_torch.tools import train_toy_prior as P
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = P.toy_unet_config(32, 64, "toy")
+    model = init_unet(cfg, seed=1)
+    gen = torch.Generator().manual_seed(2)
+    with torch.no_grad():  # the zero-initialized output convs carry signal too
+        for p in model.parameters():
+            if not p.any():
+                p.add_(0.02 * torch.randn(p.shape, generator=gen))
+    batch = P.draw_batch(gen, P.build_parser().parse_args(["--batch", "4", "--size", "32"]),
+                         "cpu")
+    from osmosis_tpu_torch.diffusion.schedules import make_schedule
+
+    consts = make_schedule("linear", 1000).device_constants()
+    out = {}
+    k4 = G.group_norm_backward.launches
+    for dev in ("cpu", cuda):
+        m = init_unet(cfg, seed=1)
+        m.load_state_dict(model.state_dict())
+        m = m.to(device=dev, memory_format=torch.channels_last)
+        loss = P.diffusion_loss(m, P.Batch(*(v.to(dev) for v in batch)),
+                                torch.as_tensor(consts["sqrt_alphas_cumprod"], device=dev),
+                                torch.as_tensor(consts["sqrt_one_minus_alphas_cumprod"],
+                                                device=dev))
+        loss.backward()
+        out[str(dev)] = (loss.item(), {n: p.grad.cpu() for n, p in m.named_parameters()})
+    assert G.group_norm_backward.launches > k4
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out[str(cuda)]
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    top = max(g.abs().max().item() for g in g_cpu.values())
+    for n, g in g_cpu.items():
+        err = (g_gpu[n] - g).abs().max().item()
+        assert err <= 1e-3 * g.abs().max().item() + 1e-5 * top, (n, err)
