@@ -66,11 +66,23 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
  16. the toy loop: ``train_toy_prior`` at 32x32 (300 steps at batch 128,
      health check on) whose loss must fall; a restore run of the preset at
      toy size that loads its EMA checkpoint (``.msgpack``) without the
-     random-init fallback; one tiny train step on the card against the CPU.
+     random-init fallback; one tiny train step on the card against the CPU;
+ 17. the server (``tools.serve``) at full width: the fast preset (bf16
+     torso, x_prev at every step) with the seeded checkpoint, ddim20 and
+     clip_denoised, behind HTTP on a local port: /healthz 503 before the
+     warmup and 200 after it, three restores of a data/underwater image
+     (seed 0 twice: the same bytes; seed 1: other bytes) with the launch
+     counts zeroed before and asserted after each, a bad payload (400) and an
+     unknown route (404); ms per request and per step, the busy share over
+     one request, the peak memory;
+ 18. the quality tools at toy size: ``simulate_degraded`` (card against
+     CPU), ``validate_toy_e2e`` on phase 16's EMA checkpoint (4 scenes, 50
+     steps), ``demo_toy_restore`` (``run_restoration`` scored by
+     ``evaluate``) and ``validate_checkpoint --tiny``.
 The line before the last gives the card's name and power limit, the one
 before it the kernels' JSON summary (each kernel's fp32 numbers on the main
-path, its bf16 per-step numbers on the hybrid path, at batch 4, and per train
-step); the last line is the result.
+path, its bf16 per-step numbers on the hybrid path, at batch 4, per train
+step, and its launches per served request); the last line is the result.
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
 """
@@ -92,8 +104,9 @@ STEPS = 20
 # tolerances, max|kernel - plain| <= atol + rtol * max|plain|:
 #   K1/K2 copy or sum in fp32 in the plain version's order: exact;
 #   K3/K4 fp32: 1e-4 relative, for the order of summation over up to 2M values;
-#   bf16: the output is rounded to bf16 (8 bits of mantissa), and the plain
-#   version rounds each intermediate to bf16 where the kernel keeps fp32.
+#   bf16: the output is rounded to bf16 (8 bits of mantissa); the kernel rounds
+#   the epilogue's intermediates where the plain version does, but a sum in
+#   another order can round a value to the neighbouring bf16 number.
 TOL = {
     ("resample", "float32"): (0.0, 0.0),
     ("resample", "bfloat16"): (0.0, 0.0),
@@ -1511,7 +1524,204 @@ def run_toy_loop(workdir):
         f"file's), run dir complete, chain_finite {row['chain_finite']}, final_loss "
         f"{row['final_loss']}")
     return dict(report=report, chunk_losses=chunks, wall_s=wall, launches=launches,
-                restore_chain_finite=row["chain_finite"])
+                restore_chain_finite=row["chain_finite"], checkpoint=out)
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the warm-model server; phase 18: the quality tools
+# ---------------------------------------------------------------------------
+
+def _http(url, data=None):
+    """(status, JSON body) of a GET, or of a POST of ``data``."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def run_serve(workdir, checkpoint, gn_sites, ups, pools):
+    """The fast preset (bf16 torso, x_prev at every step, 20 phi iterations)
+    behind the port's HTTP server at full width, with the seeded random-init
+    checkpoint, ddim STEPS for ddim200 and clip_denoised (random weights turn
+    an unclipped chain to NaN): /healthz 503 before the warmup and 200 after
+    it; three restores of a data/underwater image (seeds 0, 0, 1: the same
+    bytes twice, other bytes for the other seed), each with its launch counts
+    zeroed before and asserted after; a bad payload (400) and an unknown
+    route (404); ms per request and per step, the busy share over one
+    request, the peak memory."""
+    import base64
+    import socket
+    import threading
+    from http.server import HTTPServer
+
+    import torch
+
+    from osmosis_tpu_torch.tools import serve
+
+    path, cfg = write_preset(workdir, "osmosis_sample_fast_config.yaml", checkpoint,
+                             name="serve.yaml", timestep_respacing=f"ddim{STEPS}",
+                             clip_denoised=True)
+    log(f"  cuts: timestep_respacing ddim{STEPS} (the preset: ddim200), clip_denoised True "
+        f"(the preset: False); width, dtype, n_iter {cfg['sample_pattern']['n_iter']} and "
+        "guidance as the preset")
+    t0 = time.perf_counter()
+    restorer = serve.Restorer(path, device="cuda:0", warmup=False)
+    load_s = time.perf_counter() - t0
+    if restorer.model.input_blocks[0][0].weight.dtype != torch.bfloat16:
+        raise AssertionError("the server did not load the preset's bf16 torso")
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    httpd = HTTPServer(("127.0.0.1", port), serve.make_handler(restorer))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{port}"
+    try:
+        before = _http(f"{url}/healthz")
+        t0 = time.perf_counter()
+        restorer.warmup()
+        warm_s = time.perf_counter() - t0
+        after = _http(f"{url}/healthz")
+        if before != (503, {"warm": False}) or after != (200, {"warm": True}):
+            raise AssertionError(f"/healthz before and after the warmup: {before}, {after}")
+        log(f"  model loaded in {load_s:.1f} s, warm in {warm_s:.1f} s; /healthz {before[0]} "
+            f"before the warmup, {after[0]} after")
+        with open(os.path.join(ROOT, "data", "underwater", "uw_0.png"), "rb") as f:
+            img = f.read()
+        expected = preset_counts(gn_sites, ups, pools, STEPS, STEPS)
+        torch.cuda.reset_peak_memory_stats()
+        requests = []
+        for seed in (0, 0, 1):
+            zero_counts()
+            t0 = time.perf_counter()
+            code, out = _http(f"{url}/restore?seed={seed}", img)
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+            if code != 200:
+                raise AssertionError(f"/restore?seed={seed}: {code} {out}")
+            check_counts(f"serve, seed {seed}", launches, expected)
+            if not math.isfinite(out["final_loss"]):
+                raise AssertionError(f"/restore?seed={seed}: final loss {out['final_loss']}")
+            for key in ("rgb_png", "depth_png"):
+                if not base64.b64decode(out[key]).startswith(b"\x89PNG"):
+                    raise AssertionError(f"/restore?seed={seed}: {key} is not a PNG")
+            requests.append(dict(seed=seed, ms=out["ms"], wall_ms=wall * 1e3,
+                                 final_loss=out["final_loss"], phi=out["phi"],
+                                 launches=launches, rgb=out["rgb_png"], depth=out["depth_png"]))
+            log(f"  POST /restore?seed={seed}: 200 in {wall * 1e3:.1f} ms ({out['ms']} ms in "
+                f"restore, {out['ms'] / STEPS:.1f} ms a step); final loss "
+                f"{out['final_loss']:.4f}; launches {launches}")
+        peak = torch.cuda.max_memory_allocated()
+        same = (requests[0]["rgb"], requests[0]["depth"]) == (requests[1]["rgb"],
+                                                             requests[1]["depth"])
+        other = requests[2]["rgb"] != requests[0]["rgb"]
+        if not (same and other):
+            raise AssertionError(f"seed 0 twice gave the same bytes: {same}; seed 1 other "
+                                 f"bytes: {other}")
+        bad = _http(f"{url}/restore", b"not an image")
+        unknown = _http(f"{url}/nope")
+        if bad[0] != 400 or unknown[0] != 404:
+            raise AssertionError(f"a bad payload got {bad}, an unknown route {unknown}")
+        log(f"  seed 0 twice: the same PNG bytes; seed 1: other bytes; a bad payload: "
+            f"{bad[0]}; an unknown route: {unknown[0]}; peak memory {peak / 2 ** 30:.2f} GiB")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    busy = device_busy_share(lambda: restorer.restore(img, seed=0), STEPS,
+                             "steps of one request (restore, seed 0)")
+    ms = [r["ms"] for r in requests]
+    for r in requests:
+        del r["rgb"], r["depth"]
+    return dict(load_s=load_s, warm_s=warm_s, requests=requests, peak_bytes=peak, busy=busy,
+                launches_per_request=requests[0]["launches"], ms_per_request=ms,
+                ms_per_step=[m / STEPS for m in ms])
+
+
+def run_quality_tools(workdir, toy_checkpoint):
+    """The quality tools on the card at toy size: ``simulate_degraded`` on four
+    seeded scenes (its PNGs against the same run on the CPU, within one
+    level), ``validate_toy_e2e`` on phase 16's EMA checkpoint (4 scenes, 50
+    respaced steps; the 300-step EMA is mostly its initial weights, so its
+    ``pass`` is reported, not asserted), ``demo_toy_restore`` (the simulated
+    PNG set through ``run_restoration``, scored by ``evaluate``) and
+    ``validate_checkpoint --tiny``."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from osmosis_tpu_torch.tools import demo_toy_restore as D
+    from osmosis_tpu_torch.tools import simulate_degraded as S
+    from osmosis_tpu_torch.tools import validate_checkpoint as VC
+    from osmosis_tpu_torch.tools import validate_toy_e2e as V
+
+    out = {}
+    sim = os.path.join(workdir, "sim_tool")
+    argv = ["--synth", "4", "--size", "32", "--seed", "123", "--noise", "gaussian",
+            "--phi-jitter", "0.1"]
+    t0 = time.perf_counter()
+    manifest = S.main(["--out", os.path.join(sim, "cuda")] + argv)
+    S.main(["--out", os.path.join(sim, "cpu"), "--cpu"] + argv)
+    worst = 0
+    for name in manifest["images"]:
+        for sub in ("input", "gt_rgb", "gt_depth"):
+            a, b = (np.asarray(Image.open(os.path.join(sim, d, sub, f"{name}.png")), np.int64)
+                    for d in ("cuda", "cpu"))
+            worst = max(worst, int(np.abs(a - b).max()))
+    if manifest["count"] != 4 or worst > 1:
+        raise AssertionError(f"simulate_degraded: {manifest['count']} images, card vs CPU "
+                             f"{worst} levels apart")
+    out["simulate"] = dict(count=manifest["count"], card_vs_cpu_max_levels=worst,
+                           wall_s=time.perf_counter() - t0)
+    log(f"  simulate_degraded {' '.join(argv)}: {manifest['count']} images; card vs CPU at "
+        f"most {worst} uint8 level(s) apart")
+
+    printed = io.StringIO()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        rc = V.main(["--checkpoint", toy_checkpoint, "--scenes", "4", "--respacing", "50"])
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    report = json.loads(printed.getvalue().strip().splitlines()[-1])
+    finite = all(math.isfinite(r[k]) for r in report["scenes"]
+                 for k in ("psnr_degraded", "psnr_restored", "depth_corr", "phi_mae"))
+    if len(report["scenes"]) != 4 or not finite or not all(launches.values()):
+        raise AssertionError(f"validate_toy_e2e: {report}; launches {launches}")
+    out["validate_toy_e2e"] = dict(report=report, rc=rc, wall_s=wall, launches=launches)
+    log(f"  validate_toy_e2e (phase 16's 300-step EMA, 4 scenes, 50 steps): {wall:.1f} s "
+        f"({wall / 200 * 1e3:.1f} ms a step), exit {rc}; {json.dumps(report)}")
+
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        demo = D.main(["--checkpoint", toy_checkpoint, "--size", "32", "--channels", "64",
+                       "--scenes", "2", "--respacing", "10",
+                       "--workdir", os.path.join(workdir, "toy_demo")])
+    if "Randomly initialize" in printed.getvalue() or not math.isfinite(demo["psnr_restored"]):
+        raise AssertionError(f"demo_toy_restore: {demo}")
+    out["demo_toy_restore"] = dict(report=demo, wall_s=time.perf_counter() - t0)
+    log(f"  demo_toy_restore (2 scenes, 10 steps): {json.dumps(demo)}")
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = VC.main(["--tiny", "--stop-after", "1",
+                      "--out", os.path.join(workdir, "selftest.msgpack")])
+    summary = json.loads(printed.getvalue().strip().splitlines()[-1])
+    if rc != 0 or not summary["parity_ok"] or "run_dir" not in summary:
+        raise AssertionError(f"validate_checkpoint --tiny: exit {rc}, {summary}")
+    out["validate_checkpoint"] = summary
+    log(f"  validate_checkpoint --tiny: parity {summary['parity_rel_err']:.2e} of the "
+        f"output's largest value, stages 2-3 ran (PSNR {summary.get('psnr_mean')})")
+    return out
 
 
 def train_row(name, training, report):
@@ -1553,14 +1763,14 @@ def main():
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/16] device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
+    log(f"[1/18] device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     built = _build.build_all()
-    log(f"[2/16] built CUDA kernels {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/18] built CUDA kernels {sorted(built)} in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/16] kernels against their plain versions at the main path's shapes")
+    log("[3/18] kernels against their plain versions at the main path's shapes")
     gn_sites, ups, pools = main_path_sites(UNetConfig())
     k_hybrid = int(load_yaml(os.path.join(ROOT, "configs", "osmosis_sample_hybrid_config.yaml"))[
         "conditioning"]["params"]["x_prev_every"])
@@ -1568,12 +1778,12 @@ def main():
     rows = check_resample_kernels(ups, pools, report, k_hybrid)
     rows += check_norm_kernels(gn_sites, report, k_hybrid)
 
-    log("[4/16] tiny UNet: card (kernels) against CPU (plain versions), TF32 off")
+    log("[4/18] tiny UNet: card (kernels) against CPU (plain versions), TF32 off")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     tiny = check_tiny_unet()
 
-    log(f"[5/16] main path at full width: preset, {STEPS} respaced steps, one image")
+    log(f"[5/18] main path at full width: preset, {STEPS} respaced steps, one image")
     build_dir = os.path.join(ROOT, "osmosis_tpu_torch", "_build")
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
@@ -1590,32 +1800,32 @@ def main():
             "group_norm_backward": len(gn_sites) * STEPS})
         ckpt = main_path["checkpoint"]
 
-        log(f"[6/16] bf16 fast path at full width: the hybrid preset, ddim{STEPS}, one image")
+        log(f"[6/18] bf16 fast path at full width: the hybrid preset, ddim{STEPS}, one image")
         hybrid, model, hybrid_cfg = run_bf16_hybrid(workdir, ckpt, gn_sites, ups, pools)
-        log("[7/16] bf16 timing by step kind, busy share, UNet rate")
+        log("[7/18] bf16 timing by step kind, busy share, UNet rate")
         hybrid.update(time_bf16_steps(model, hybrid_cfg))
         del model
         log(f"  bf16 seconds per warm step: x_prev {hybrid['x_prev_seconds_per_step']:.4f}, x0 "
             f"{hybrid['x0_seconds_per_step']:.4f}; {smi}")
 
-        log(f"[8/16] RGBD prior sampler at full width: {STEPS} steps, one image, fp32")
+        log(f"[8/18] RGBD prior sampler at full width: {STEPS} steps, one image, fp32")
         prior = run_prior(workdir, ckpt, gn_sites, ups, pools, steps=STEPS)
         log(f"  seconds per prior step: {prior['seconds_per_step']:.4f}; {smi}")
 
-        log("[9/16] rgb_guidance at full width: 10 steps, one image, fp32")
+        log("[9/18] rgb_guidance at full width: 10 steps, one image, fp32")
         rgb = run_rgb_guidance(workdir, ckpt, gn_sites, ups, pools, steps=10)
 
-        log(f"[10/16] haze and simulation presets at full width: {STEPS} steps, one image each, "
+        log(f"[10/18] haze and simulation presets at full width: {STEPS} steps, one image each, "
             "fp32")
         presets = run_haze_and_simulation(workdir, ckpt, gn_sites, ups, pools)
 
-        log(f"[11/16] kernels at batch {FLEET} against their plain versions at the main path's "
+        log(f"[11/18] kernels at batch {FLEET} against their plain versions at the main path's "
             "shapes")
         gn4, ups4, pools4 = main_path_sites(UNetConfig(), batch=FLEET)
         rows += check_resample_kernels(ups4, pools4, report, k_hybrid, suffix="_b4")
         rows += check_norm_kernels(gn4, report, k_hybrid, batch=FLEET, suffix="_b4")
 
-        log(f"[12/16] the batch-{FLEET} fleet at full width: fp32 preset ({STEPS} steps) and bf16 "
+        log(f"[12/18] the batch-{FLEET} fleet at full width: fp32 preset ({STEPS} steps) and bf16 "
             f"hybrid preset (ddim{STEPS}), {FLEET} seeded images, clip_denoised")
         fleet = run_fleet(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
         ucfg = unet_config_from_yaml(load_yaml(os.path.join(
@@ -1629,25 +1839,35 @@ def main():
         del models
         log(f"  {smi}")
 
-        log(f"[13/16] segments and resume: bf16 hybrid preset, ddim{STEPS}, progress_segments 4, "
+        log(f"[13/18] segments and resume: bf16 hybrid preset, ddim{STEPS}, progress_segments 4, "
             "chain_checkpoint, a crash after the first boundary")
         segments = run_segments_and_resume(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
 
-        log("[14/16] best_of 2 with phi_jitter, global_N 2 with global_eta_scale 0.5, async_save:"
+        log("[14/18] best_of 2 with phi_jitter, global_N 2 with global_eta_scale 0.5, async_save:"
             " bf16 hybrid preset, ddim10, one image")
         restarts = run_restarts(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
 
-        log(f"[15/16] training at full width: toy_unet_config(256, 256, 'production'), batch "
+        log(f"[15/18] training at full width: toy_unet_config(256, 256, 'production'), batch "
             f"{TRAIN_BATCH}, fp32, Adam and the EMA")
         training = run_training(main_path["n_params"], gn_sites, ups, pools)
         log(f"  seconds per train step {training['seconds_per_step']:.4f} (batch {TRAIN_BATCH}), "
             f"per image {training['seconds_per_image']:.4f}; peak {training['peak_bytes'] / 2 ** 30:.2f}"
             f" GiB; {smi}")
 
-        log("[16/16] the toy loop: train_toy_prior at 32x32, 300 steps at batch 128, then a "
+        log("[16/18] the toy loop: train_toy_prior at 32x32, 300 steps at batch 128, then a "
             "restore run from its EMA checkpoint; a tiny train step card vs CPU")
         toy = run_toy_loop(workdir)
         toy["card_vs_cpu"] = check_train_step_card_vs_cpu()
+
+        log(f"[17/18] the server at full width: the fast preset (bf16, x_prev every step), "
+            f"ddim{STEPS}, three requests")
+        served = run_serve(workdir, ckpt, gn_sites, ups, pools)
+        log(f"  ms per request {served['ms_per_request']}, per step "
+            f"{[round(m, 1) for m in served['ms_per_step']]}; {smi}")
+
+        log("[18/18] the quality tools at toy size: simulate_degraded, validate_toy_e2e, "
+            "demo_toy_restore, validate_checkpoint --tiny")
+        quality = run_quality_tools(workdir, toy["checkpoint"])
 
     meta = {
         "upsample_nearest_2x": ("cuda", "osmosis_tpu_torch/ops/csrc/upsample.cu",
@@ -1687,13 +1907,14 @@ def main():
                             b4_bf16_hybrid_max_abs_err=hyb4["max_abs_err"],
                             fleet_fp32_launches=fleet["float32"]["launches"][name],
                             fleet_bf16_launches=fleet["bfloat16"]["launches"][name],
+                            serve_launches_per_request=served["launches_per_request"][name],
                             **train_row(name, training, report)))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_report.json"), "w") as f:
         json.dump(dict(device=kind, nvidia_smi=smi, kernels=kernels, rows=rows, tiny_unet=tiny,
                        main_path=main_path, bf16_hybrid=hybrid, prior=prior, rgb_guidance=rgb,
                        presets=presets, fleet=fleet, segments=segments, restarts=restarts,
-                       training=training, toy=toy,
+                       training=training, toy=toy, serve=served, quality=quality,
                        seconds=time.perf_counter() - t_start), f, indent=1, default=str)
     log(f"  per-shape rows in results/chip_smoke_report.json; "
         f"total {time.perf_counter() - t_start:.1f} s")

@@ -4,13 +4,19 @@
 // Replaces the JAX package's hand-written GroupNorm ops, osmosis_tpu/models/nn.py:
 // group_norm (:72, backward _gn_bwd :98), norm_silu (:178, _ns_bwd :190) and
 // norm_film_silu (:205, _nfs_bwd :220). Statistics as there: fp32
-// var = E[x^2] - mean^2, inv = rsqrt(var + eps); the norm output rounded to x's
-// dtype before the FiLM/SiLU epilogue; the backward recomputes the epilogue
-// from x and the saved [B, C] statistics.
+// var = E[x^2] - mean^2, inv = rsqrt(var + eps); the backward recomputes the
+// epilogue from x and the saved [B, C] statistics. In bf16 every value of the
+// epilogue and of its derivative that is a bf16 tensor there (and in the
+// plain versions of ops/group_norm.py, one rounding per PyTorch op) is rounded
+// to bf16 at the same point: the norm output, 1 + fs, the FiLM product and
+// sum, the sigmoid, each factor of SiLU's derivative, dfilm, dfilm * gn and
+// dgn; the sums over them stay fp32. In fp32 the rounding is the identity.
 //
 // Bound: bytes. A few dozen flops an element, far below the H100's ~20 fp32
 // flops a byte, so the least time is one read of x and one write of y (K3), or
-// reads of x and dy and one write of dx (K4), at 3.35 TB/s.
+// reads of x and dy and one write of dx (K4), at 3.35 TB/s. In bf16 the rounded
+// epilogue (up to 11 roundings an element, twice in K4) adds ALU time that
+// keeps K3/K4 further from that bound than in fp32.
 //
 // Design. A channel block is a run of whole groups, cut into 16-byte vectors;
 // thread t of a CTA always owns vector t % cv of the block (cv vectors a
@@ -100,8 +106,8 @@ __device__ __forceinline__ uint4 from_float(const float* f, __nv_bfloat16) {
   return v;
 }
 
-// x rounded to T and back: the norm output is rounded to x's dtype before
-// the epilogue, as the JAX package's group_norm casts its result back.
+// x rounded to T and back: where the JAX package (and the plain version) holds
+// a value as a tensor of x's dtype, the kernel rounds it there too.
 __device__ __forceinline__ float round_to(float x, float) { return x; }
 __device__ __forceinline__ float round_to(float x, __nv_bfloat16) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -112,8 +118,49 @@ __device__ __forceinline__ float load_as_float(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
+// In bf16 the kernels repeat PyTorch's eager arithmetic of the plain versions,
+// each operation rounded to fp32 on its own (no contraction into an FMA) and
+// the sigmoid as 1 / (1 + expf(-h)), so that kernel and plain version meet the
+// same values at every bf16 rounding. The fp32 instantiation keeps its FMAs
+// and its fast sigmoid.
+
+// (x - mean) * scale + bias
+__device__ __forceinline__ float affine(float xm, float sc, float b, float) { return xm * sc + b; }
+__device__ __forceinline__ float affine(float xm, float sc, float b, __nv_bfloat16) {
+  return __fadd_rn(__fmul_rn(xm, sc), b);
+}
+
+// x_hat = (x - mean) * inv
+__device__ __forceinline__ float x_hat(float x, float mean, float inv, float) {
+  return (x - mean) * inv;
+}
+__device__ __forceinline__ float x_hat(float x, float mean, float inv, __nv_bfloat16) {
+  return __fmul_rn(__fsub_rn(x, mean), inv);
+}
+
+// dx = inv * (dgn * w - h1 - x_hat * h2)
+__device__ __forceinline__ float dx_of(float inv, float dgn, float w, float h1, float xh, float h2,
+                                       float) {
+  return inv * (dgn * w - h1 - xh * h2);
+}
+__device__ __forceinline__ float dx_of(float inv, float dgn, float w, float h1, float xh, float h2,
+                                       __nv_bfloat16) {
+  return __fmul_rn(inv, __fsub_rn(__fsub_rn(__fmul_rn(dgn, w), h1), __fmul_rn(xh, h2)));
+}
+
 // __fdividef is 0 where 1 + e^-h overflows past 2^126, which is the sigmoid's limit
-__device__ __forceinline__ float sigmoid(float h) { return __fdividef(1.0f, 1.0f + __expf(-h)); }
+__device__ __forceinline__ float sigmoid(float h, float) {
+  return __fdividef(1.0f, 1.0f + __expf(-h));
+}
+__device__ __forceinline__ float sigmoid(float h, __nv_bfloat16) { return 1.0f / (1.0f + expf(-h)); }
+
+// g * SiLU'(h) with s = sigmoid(h), as g * (s * (1 + h * (1 - s))) rounded to T
+// after each operation (_silu_bwd in the JAX package)
+template <typename T>
+__device__ __forceinline__ float silu_grad(float g, float h, float s) {
+  const float u = round_to(1.0f + round_to(h * round_to(1.0f - s, T()), T()), T());
+  return round_to(g * round_to(s * u, T()), T());
+}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -233,7 +280,8 @@ __global__ void __launch_bounds__(kMaxThreads) gn_kernel(Args a) {
     fs1[k] = 1.0f;
     ft[k] = 0.0f;
     if (MODE == kFilm) {
-      fs1[k] = 1.0f + load_as_float(static_cast<const T*>(a.fs) + b * a.fs_ld + cl + k);
+      fs1[k] = round_to(1.0f + load_as_float(static_cast<const T*>(a.fs) + b * a.fs_ld + cl + k),
+                        T());
       ft[k] = load_as_float(static_cast<const T*>(a.ft) + b * a.fs_ld + cl + k);
     }
     if (BWD) {
@@ -290,22 +338,20 @@ __global__ void __launch_bounds__(kMaxThreads) gn_kernel(Args a) {
           to_float(dv[u], g, T());
 #pragma unroll
           for (int k = 0; k < L; ++k) {
-            const float xhat = (f[k] - mean[k]) * inv[k];
-            const float gn = round_to((f[k] - mean[k]) * (inv[k] * w[k]) + bb[k], T());
+            const float xhat = x_hat(f[k], mean[k], inv[k], T());
+            const float gn = round_to(affine(f[k] - mean[k], inv[k] * w[k], bb[k], T()), T());
             float dgn = g[k], dfilm = g[k];
             if (MODE == kFilm) {
-              const float h = gn * fs1[k] + ft[k];
-              const float s = sigmoid(h);
-              dfilm = g[k] * (s * (1.0f + h * (1.0f - s)));
-              dgn = dfilm * fs1[k];
+              const float h = round_to(round_to(gn * fs1[k], T()) + ft[k], T());
+              dfilm = silu_grad<T>(g[k], h, round_to(sigmoid(h, T()), T()));
+              dgn = round_to(dfilm * fs1[k], T());
             } else if (MODE == kSilu) {
-              const float s = sigmoid(gn);
-              dgn = g[k] * (s * (1.0f + gn * (1.0f - s)));
+              dgn = silu_grad<T>(g[k], gn, round_to(sigmoid(gn, T()), T()));
             }
             acc[0][k] += dgn;
             acc[1][k] += dgn * xhat;
             if (film_grads) {
-              acc[2][k] += dfilm * gn;
+              acc[2][k] += round_to(dfilm * gn, T());
               acc[3][k] += dfilm;
             }
           }
@@ -436,9 +482,9 @@ __global__ void __launch_bounds__(kMaxThreads) gn_kernel(Args a) {
       if (!BWD) {
 #pragma unroll
         for (int k = 0; k < L; ++k) {
-          float h = round_to((f[k] - mean[k]) * sc[k] + bb[k], T());
-          if (MODE == kFilm) h = h * fs1[k] + ft[k];
-          if (MODE != kNone) h = h * sigmoid(h);
+          float h = round_to(affine(f[k] - mean[k], sc[k], bb[k], T()), T());
+          if (MODE == kFilm) h = round_to(round_to(h * fs1[k], T()) + ft[k], T());
+          if (MODE != kNone) h = h * round_to(sigmoid(h, T()), T());
           o[k] = h;
         }
       } else {
@@ -446,18 +492,16 @@ __global__ void __launch_bounds__(kMaxThreads) gn_kernel(Args a) {
         to_float(dv[u], g, T());
 #pragma unroll
         for (int k = 0; k < L; ++k) {
-          const float xhat = (f[k] - mean[k]) * inv[k];
-          const float gn = round_to((f[k] - mean[k]) * sc[k] + bb[k], T());
+          const float xhat = x_hat(f[k], mean[k], inv[k], T());
+          const float gn = round_to(affine(f[k] - mean[k], sc[k], bb[k], T()), T());
           float dgn = g[k];
           if (MODE == kFilm) {
-            const float h = gn * fs1[k] + ft[k];
-            const float s = sigmoid(h);
-            dgn = g[k] * (s * (1.0f + h * (1.0f - s))) * fs1[k];
+            const float h = round_to(round_to(gn * fs1[k], T()) + ft[k], T());
+            dgn = round_to(silu_grad<T>(g[k], h, round_to(sigmoid(h, T()), T())) * fs1[k], T());
           } else if (MODE == kSilu) {
-            const float s = sigmoid(gn);
-            dgn = g[k] * (s * (1.0f + gn * (1.0f - s)));
+            dgn = silu_grad<T>(g[k], gn, round_to(sigmoid(gn, T()), T()));
           }
-          o[k] = inv[k] * (dgn * w[k] - h1[k] - xhat * h2[k]);
+          o[k] = dx_of(inv[k], dgn, w[k], h1[k], xhat, h2[k], T());
         }
       }
       gout[(long long)at(p + u * rows) * ldv] = from_float(o, T());

@@ -4,9 +4,12 @@ The port of the JAX package's hand-written GroupNorm ops
 (``osmosis_tpu/models/nn.py``): ``group_norm`` (custom VJP, :72-132),
 ``norm_silu`` (:178-202) and ``norm_film_silu`` (:205-240). One op covers all
 three: ``y = silu?( GN(x)·(1+s)+t ?)``, statistics in fp32 with the JAX
-formula ``var = E[x²] − mean²``, ``inv = rsqrt(var + eps)``, the norm output
-rounded to x's dtype before the epilogue. The backward saves only x and the
-[B, C] statistics and recomputes the epilogue, as ``_ns_bwd``/``_nfs_bwd`` do.
+formula ``var = E[x²] − mean²``, ``inv = rsqrt(var + eps)``. The backward
+saves only x and the [B, C] statistics and recomputes the epilogue, as
+``_ns_bwd``/``_nfs_bwd`` do. In bf16 the epilogue and its derivative are bf16
+tensors, as in JAX: the plain versions round after every PyTorch op (the norm
+output, the FiLM, the sigmoid, dfilm, dgn, ...) and the kernels round at the
+same points, while every sum stays fp32.
 
 * K3 ``group_norm_forward`` and K4 ``group_norm_backward`` are CUDA C++
   (``csrc/group_norm.cu``, built by ``_build``). Each call is one launch, or

@@ -345,15 +345,7 @@ def run_restoration(config_file: str, device="cuda:0",
     batch_size = int(data_config.get("batch_size", 1) or 1)
     progress_segments = int(getattr(args, "progress_segments", 0) or 0)
     chain_checkpoint = bool(getattr(args, "chain_checkpoint", False))
-    chain_fp = ""
-    if chain_checkpoint:
-        # everything that sets the chain's numbers; the run dir's place, resume
-        # and segmentation (bit-neutral) stay out, so a resume may change them
-        fp_cfg = {k: v for k, v in vars(args).items()
-                  if k not in ("save_dir", "resume", "progress_segments", "chain_checkpoint")}
-        fp_cfg["torso_dtype"] = str(dtype)
-        chain_fp = hashlib.sha256(
-            json.dumps(fp_cfg, sort_keys=True, default=str).encode()).hexdigest()[:16]
+    chain_fp = chain_fingerprint(args, dtype, dev) if chain_checkpoint else ""
 
     k_align = gcfg.x_prev_every if (gcfg.x_prev_every > 1 and (
         gcfg.gradient_x_prev or gcfg.method == "ps")) else 1
@@ -393,6 +385,19 @@ def run_restoration(config_file: str, device="cuda:0",
     logger.log(run.timers.summary())
     logger.close()
     return out_path
+
+
+def chain_fingerprint(args, dtype, device) -> str:
+    """The chain checkpoint's fingerprint: everything that sets the chain's
+    numbers. The torso dtype and the device type are in it, since the CUDA
+    and CPU generators draw other noise from one seed; the run dir's place,
+    resume and segmentation (bit-neutral) stay out, so a resume may change
+    them."""
+    fp_cfg = {k: v for k, v in vars(args).items()
+              if k not in ("save_dir", "resume", "progress_segments", "chain_checkpoint")}
+    fp_cfg["torso_dtype"] = str(dtype)
+    fp_cfg["device_type"] = torch.device(device).type
+    return hashlib.sha256(json.dumps(fp_cfg, sort_keys=True, default=str).encode()).hexdigest()[:16]
 
 
 def _measurement(run, ref_np, i):

@@ -10,7 +10,9 @@ of one call (``utils.timing.graph_time_ms``: ten calls captured in one CUDA
 graph, replayed). The backward is timed as the main path calls it, without
 the parameter-gradient sums; the other checkout's backward as it is. Per site
 the two versions are timed in turns, other, this, this, other, and each is
-the mean of its two turns. "split" is this checkout's two-launch geometry
+the mean of its two turns, and their outputs (y and the statistics; dx and
+the parameter sums) are compared: ``identical`` where every output has the
+same bits, else the largest difference. "split" is this checkout's two-launch geometry
 forced with ``MAX_CLUSTER = 0``. ``--set`` overrides a geometry constant of
 ``ops.group_norm`` (``TILE_BUDGET``, ``MAX_THREADS``, ``MAX_CLUSTER``,
 ``RESIDENT_ROW_BYTES``, ``SPLIT_THREADS``, ``SPLIT_ROW_BYTES``,
@@ -143,6 +145,14 @@ def main(argv=None):
                 return torch.autograd.grad(lib_fwd(xr), xr, gy)
 
         row = dict(C=c, H=h, W=w, mode=mode, dtype=args.dtype, per_step=n)
+        if other is not None:
+            for d, call in (("fwd", "group_norm_forward"), ("bwd", "group_norm_backward")):
+                args_ = (x, wgt, bias, fs, ft, silu) if d == "fwd" else (
+                    gy, x, wgt, bias, fs, ft, silu, m, i)
+                pairs = [(a, b) for a, b in zip(getattr(G, call)(*args_), getattr(other, call)(*args_))
+                         if a is not None]
+                row[f"{d}_vs_other"] = "identical" if all(torch.equal(a, b) for a, b in pairs) \
+                    else max((a.float() - b.float()).abs().max().item() for a, b in pairs)
         for d, make, nbytes in (("fwd", fwd, 2), ("bwd", bwd, 3)):
             p = G._device_plan(torch.cuda.current_device(), 1, c, h, w, G._DTYPE_CODES[dtype],
                                G._mode(fs, silu), d == "bwd", 2, G.MAX_CLUSTER)
@@ -179,7 +189,8 @@ def main(argv=None):
         rows.append(row)
         print(f"C={c:5d} {h:3d}x{w:<3d} {mode:4s} x{n:<2d} " + " | ".join(
             f"{d} {row[f'{d}_geometry']:11s} {row[f'{d}_us']:7.1f}"
-            + (f" other {row[f'{d}_other_us']:7.1f}" if other is not None else "")
+            + (f" other {row[f'{d}_other_us']:7.1f} ({row[f'{d}_vs_other']})"
+               if other is not None else "")
             + f" split {row[f'{d}_split_us']:7.1f} lib {row[f'{d}_library_us']:7.1f}"
             f" bound {row[f'{d}_bound_us']:6.1f}" for d in ("fwd", "bwd")), flush=True)
 

@@ -154,3 +154,36 @@ def test_crash_then_resume_bitwise(tmp_path, images, fleet, crash_after):  # noq
         assert "replayed from the chain checkpoint" in log
     assert not os.path.exists(pjoin(out_b, ".chain_state"))
     assert _pngs(out_a) == _pngs(out_b)
+
+
+def test_a_journal_from_another_device_type_starts_fresh(tmp_path, images,  # noqa: F811
+                                                         monkeypatch):
+    """The CUDA and CPU generators draw other noise from one seed, so the
+    fingerprint holds the device type (not its index): a chain state that a
+    run on the card left behind is stale on the CPU, and a resume there
+    starts the image afresh and writes the uninterrupted CPU run's PNGs."""
+    from osmosis_tpu_torch import config as C
+
+    over = dict(progress_segments=SEGMENTS, chain_checkpoint=True)
+    args = C.arguments_from_file(_cfg(tmp_path, images, "fp", False, **over))
+    fps = {dev: R.chain_fingerprint(args, torch.float32, torch.device(dev))
+           for dev in ("cpu", "cuda", "cuda:1")}
+    assert fps["cpu"] != fps["cuda"] == fps["cuda:1"]
+    assert R.chain_fingerprint(args, torch.bfloat16, torch.device("cpu")) != fps["cpu"]
+
+    out_a = run_restoration(_cfg(tmp_path, images, "a", False, **over), device="cpu")
+    fingerprint = R.chain_fingerprint
+    with monkeypatch.context() as m:  # the crashed run's journal as the card writes it
+        m.setattr(R, "chain_fingerprint",
+                  lambda a, dtype, dev: fingerprint(a, dtype, torch.device("cuda", 0)))
+        m.setenv("OSMOSIS_TPU_CRASH_AFTER_SEGMENTS", str(R._CRASH_SAVES["n"] + 1))
+        with pytest.raises(RuntimeError, match="injected crash"):
+            run_restoration(_cfg(tmp_path, images, "b", False, **over), device="cpu")
+    states = [d for d, _, _ in os.walk(str(tmp_path / "results_b")) if d.endswith(".chain_state")]
+    assert states, "no chain state persisted before the crash"
+
+    out_b = run_restoration(_cfg(tmp_path, images, "b", False, resume=True, **over),
+                            device="cpu")
+    log = open(pjoin(out_b, "log.txt")).read()
+    assert "resuming chain" not in log and "restored from a previous run" not in log
+    assert _pngs(out_a) == _pngs(out_b)
