@@ -78,7 +78,17 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
  18. the quality tools at toy size: ``simulate_degraded`` (card against
      CPU), ``validate_toy_e2e`` on phase 16's EMA checkpoint (4 scenes, 50
      steps), ``demo_toy_restore`` (``run_restoration`` scored by
-     ``evaluate``) and ``validate_checkpoint --tiny``.
+     ``evaluate``) and ``validate_checkpoint --tiny``;
+ 19. two ranks on the one card (``parallel/multihost`` over gloo), each a
+     process of the port's CLI (``--coordinator 127.0.0.1:<port>
+     --num-processes 2 --process-id k -d 0``): the fp32 preset (10 steps,
+     clip_denoised, cuDNN's deterministic algorithms) on three images
+     against one process (one run dir, image i on rank i % 2, each rank's
+     launches, every PNG byte for byte; the same run with cuDNN's default
+     algorithms and the UNet's repeated calls show why),
+     the prior on two indices, and the fp32 preset (10 steps) and the bf16
+     hybrid preset (ddim20) on four images each, timed in one process and in
+     two: seconds per image-step and each rank's peak memory.
 The line before the last gives the card's name and power limit, the one
 before it the kernels' JSON summary (each kernel's fp32 numbers on the main
 path, its bf16 per-step numbers on the hybrid path, at batch 4, per train
@@ -1724,6 +1734,328 @@ def run_quality_tools(workdir, toy_checkpoint):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: two ranks on one card (parallel/multihost over gloo)
+# ---------------------------------------------------------------------------
+
+MH_RANKS = 2
+MH_STEPS = 10
+MH_TIMING_IMAGES = 4
+
+
+def rank_worker(argv):
+    """One rank of phase 19: ``chip_smoke.py --rank-worker <tasks.json> <k>``
+    runs each task of the file in turn through the port's CLI (``sample`` or
+    ``prior_sample``'s ``main``, with the task's arguments and the cluster
+    flags; the first call joins the group, the later ones keep it), with
+    cuDNN's deterministic algorithms where the task asks, the launch counts
+    zeroed and the peak memory reset before it; after each it writes its
+    counts, its peak, its progress rows and the ranks it gathered to
+    ``<tag>_rank<k>.json`` beside the file."""
+    import torch
+
+    from osmosis_tpu_torch import prior_sample, sample
+    from osmosis_tpu_torch.parallel import multihost as MH
+
+    with open(argv[0]) as f:
+        spec = json.load(f)
+    k = int(argv[1])
+    cluster = ["-d", "0", "--coordinator", spec["coordinator"], "--num-processes",
+               str(MH_RANKS), "--process-id", str(k)]
+    for task in spec["tasks"]:
+        torch.backends.cudnn.deterministic = task["deterministic"]
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        main = prior_sample.main if task["kind"] == "prior" else sample.main
+        run_dir = main(["-c", task["config"], *cluster])
+        torch.cuda.synchronize()
+        rows = read_rows(run_dir, f"progress{MH.rank_suffix()}.json")
+        gathered = MH.gather_scalars({"rank": MH.process_index()})
+        report = os.path.join(os.path.dirname(argv[0]), f"{task['tag']}_rank{k}.json")
+        with open(report, "w") as f:
+            json.dump(dict(rank=MH.process_index(), count=MH.process_count(), run_dir=run_dir,
+                           launches=read_counts(), peak_bytes=torch.cuda.max_memory_allocated(),
+                           rows=rows, gathered_ranks=gathered["rank"].tolist()), f)
+    MH.barrier("tasks_done")
+    return 0
+
+
+def launch_ranks(workdir, tasks, timeout=300):
+    """MH_RANKS processes of ``rank_worker`` over ``tasks`` (dicts of tag,
+    kind, config, deterministic), all on cuda:0, joined by gloo at a free
+    local port; each is killed if it outlives ``timeout``. Returns ({tag: the
+    ranks' reports}, wall seconds)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    spec = os.path.join(workdir, "mh_tasks.json")
+    with open(spec, "w") as f:
+        json.dump(dict(coordinator=f"127.0.0.1:{port}", tasks=tasks), f)
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for k in range(MH_RANKS):
+            out = open(os.path.join(workdir, f"mh_rank{k}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--rank-worker", spec,
+                 str(k)], cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), stdout=out,
+                stderr=subprocess.STDOUT), out))
+        deadline = time.time() + timeout
+        for p, out in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.time()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p, out in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            out.close()
+    wall = time.perf_counter() - t0
+    for k, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(workdir, f"mh_rank{k}.log")) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"rank {k} exited {p.returncode}:\n{tail}")
+    reports = {}
+    for task in tasks:
+        reports[task["tag"]] = []
+        for k in range(MH_RANKS):
+            with open(os.path.join(workdir, f"{task['tag']}_rank{k}.json")) as f:
+                reports[task["tag"]].append(json.load(f))
+        rs = reports[task["tag"]]
+        if len({r["run_dir"] for r in rs}) != 1 or any(
+                r["gathered_ranks"] != list(map(float, range(MH_RANKS))) for r in rs):
+            raise AssertionError(f"{task['tag']}: the ranks did not share one run dir and one "
+                                 f"group: {[(r['run_dir'], r['gathered_ranks']) for r in rs]}")
+    return reports, wall
+
+
+def check_rank_counts(what, reports, per_image):
+    """Each rank's launches: the one-process run's per image times its images."""
+    for r in reports:
+        n = len(r["rows"])
+        check_counts(f"{what}, rank {r['rank']} ({n} images)", r["launches"],
+                     {k: v * n for k, v in per_image.items()})
+
+
+def png_differences(dir_a, dir_b):
+    """{relative path: the largest difference in uint8 levels} over the PNGs
+    whose bytes differ between two run dirs with the same files."""
+    import numpy as np
+    from PIL import Image
+
+    a, b = png_bytes(dir_a), png_bytes(dir_b)
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"the runs wrote other PNGs: {sorted(a)} against {sorted(b)}")
+    return {k: int(np.abs(np.asarray(Image.open(os.path.join(dir_a, k)), np.int64)
+                          - np.asarray(Image.open(os.path.join(dir_b, k)), np.int64)).max())
+            for k in sorted(a) if a[k] != b[k]}
+
+
+def fp32_repeats(checkpoint, calls=3):
+    """The fp32 UNet's forward and x-pullback at a seeded 256x256 input and
+    t = 999, ``calls`` times, with cuDNN's default algorithms and with its
+    deterministic ones: does each call give the first call's bits?"""
+    import torch
+
+    from osmosis_tpu_torch.config import load_yaml
+    from osmosis_tpu_torch.models.convert import load_unet
+    from osmosis_tpu_torch.models.unet import unet_config_from_yaml
+
+    ucfg = unet_config_from_yaml(load_yaml(os.path.join(
+        ROOT, "configs", "osmosis_sample_config.yaml"))["unet_model"])
+    model = load_unet(checkpoint, ucfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((1, 256, 256, 4), generator=gen, device="cuda").requires_grad_(True)
+    tt = torch.full((1,), 999.0, device="cuda")
+    out = {}
+    saved = torch.backends.cudnn.deterministic
+    try:
+        for det in (False, True):
+            torch.backends.cudnn.deterministic = det
+            runs = []
+            for _ in range(calls):
+                y = model(x, tt)
+                (dx,) = torch.autograd.grad(y[..., :4].sum(), x)
+                runs.append((y.detach(), dx))
+            out["deterministic" if det else "default"] = dict(
+                forward_repeats=all(torch.equal(runs[0][0], r[0]) for r in runs[1:]),
+                pullback_repeats=all(torch.equal(runs[0][1], r[1]) for r in runs[1:]),
+                pullback_max_abs_diff=max((runs[0][1] - r[1]).abs().max().item()
+                                          for r in runs[1:]))
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    return out
+
+
+def read_rows(run_dir, name="progress.json"):
+    with open(os.path.join(run_dir, name)) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def run_multihost(workdir, checkpoint, gn_sites, ups, pools, k_hybrid):
+    """Two ranks on one card through the port's CLI (``--coordinator
+    127.0.0.1:<port> --num-processes 2 --process-id k -d 0``), two processes
+    that run every task below in turn, after the one-process runs here:
+    (a) the fp32 preset, MH_STEPS steps, clip_denoised, on uw_0, uw_1 and a
+        seeded 256x256 image: one run dir, image i on rank i % 2, both ranks'
+        logs, each rank's K1-K4 launches the one-process run's per image
+        times its images, and every PNG the one-process run's byte for byte.
+        Both runs take cuDNN's deterministic algorithms: its default fp32
+        backward-data algorithm gives other bits from run to run, in one
+        process too, which the chain amplifies to a few uint8 levels. The
+        one-process run with the default algorithms, and three calls of the
+        UNet with each, measure that;
+    (b) the RGBD prior, 2 indices, MH_STEPS steps: one run dir, both images;
+    (c) the fp32 preset (MH_STEPS steps) and the bf16 hybrid preset (ddim
+        STEPS), MH_TIMING_IMAGES seeded images each, in one process and in
+        two: seconds per image-step and each rank's peak."""
+    import shutil
+
+    import torch
+    import yaml
+
+    out = {}
+    imgs = os.path.join(workdir, "mh_images")
+    os.makedirs(imgs)
+    for i in (0, 1):
+        shutil.copy(os.path.join(ROOT, "data", "underwater", f"uw_{i}.png"), imgs)
+    write_images(os.path.join(workdir, "mh_seeded"), 1, 30, "uw", size=(256, 256))
+    os.replace(os.path.join(workdir, "mh_seeded", "uw_0.png"), os.path.join(imgs, "uw_2.png"))
+    write_images(os.path.join(workdir, "mh_timing"), MH_TIMING_IMAGES, 31, "tm", size=(256, 256))
+    timing_data = dict(root=os.path.join(workdir, "mh_timing"), stop_after=-1)
+    cases = {  # tag: preset, data, respacing, steps, x_prev steps, deterministic
+        "preset": ("osmosis_sample_config.yaml", dict(root=imgs, stop_after=-1), MH_STEPS,
+                   MH_STEPS, MH_STEPS, True),
+        "float32": ("osmosis_sample_config.yaml", timing_data, MH_STEPS, MH_STEPS, MH_STEPS,
+                    False),
+        "bfloat16": ("osmosis_sample_hybrid_config.yaml", timing_data, f"ddim{STEPS}", STEPS,
+                     len(range(0, STEPS, k_hybrid)), False),
+    }
+    paths, per_image, one = {}, {}, {}
+    for tag, (preset, data, resp, steps, n_full, det) in cases.items():
+        per_image[tag] = preset_counts(gn_sites, ups, pools, steps, n_full)
+        for n in ("one", "two"):
+            paths[tag, n], _ = write_preset(workdir, preset, checkpoint, name=f"mh_{tag}_{n}.yaml",
+                                            data=data, timestep_respacing=resp, clip_denoised=True,
+                                            top=dict(save_dir=os.path.join(workdir, f"mh_{tag}_{n}")))
+        n_images = len(os.listdir(data["root"]))
+        saved, torch.backends.cudnn.deterministic = torch.backends.cudnn.deterministic, det
+        held = torch.cuda.memory_allocated()  # this process's tensors from earlier phases
+        try:
+            run_dir, wall, _, peak = run_counted(paths[tag, "one"], f"{tag}, one process", {
+                k: n_images * v for k, v in per_image[tag].items()})
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        one[tag] = dict(run_dir=run_dir, wall_s=wall, peak_bytes=peak - held,
+                        rows=read_rows(run_dir))
+    # why (a) takes the deterministic algorithms: the same one-process run
+    # with cuDNN's default ones, and the UNet's repeats with each
+    default_dir = run_counted(paths["preset", "one"], "preset, default cuDNN", {
+        k: 3 * v for k, v in per_image["preset"].items()})[0]
+    det_vs_default = png_differences(one["preset"]["run_dir"], default_dir)
+    repeats = fp32_repeats(checkpoint)
+    log(f"  fp32 preset, one process, cuDNN's default algorithms against its deterministic ones: "
+        f"{len(det_vs_default)} of {len(png_bytes(default_dir))} PNGs differ, by up to "
+        f"{max(det_vs_default.values(), default=0)} uint8 levels; the fp32 UNet called "
+        f"3 times: {repeats}")
+    if not (repeats["deterministic"]["forward_repeats"]
+            and repeats["deterministic"]["pullback_repeats"]):
+        raise AssertionError("with cuDNN's deterministic algorithms the fp32 UNet does not "
+                             "repeat its bits")
+    out["determinism"] = dict(default_vs_deterministic_pngs=det_vs_default, unet=repeats)
+    path, cfg = write_preset(workdir, "RGBD_sample_config.yaml", checkpoint, name="mh_prior.yaml",
+                             timestep_respacing=MH_STEPS,
+                             top=dict(save_dir=os.path.join(workdir, "mh_prior")))
+    cfg["number_of_images"] = MH_RANKS
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    tasks = [dict(tag="preset", kind="sample", config=paths["preset", "two"], deterministic=True),
+             dict(tag="prior", kind="prior", config=path, deterministic=False)]
+    tasks += [dict(tag=tag, kind="sample", config=paths[tag, "two"], deterministic=False)
+              for tag in ("float32", "bfloat16")]
+    reports, wall = launch_ranks(workdir, tasks)
+    log(f"  two ranks ran their {len(tasks)} tasks in {wall:.1f} s, their start included")
+
+    rs = reports["preset"]
+    run_dir = rs[0]["run_dir"]
+    owned = [[row["image"] for row in r["rows"]] for r in rs]
+    if owned != [["uw_0.png", "uw_2.png"], ["uw_1.png"]]:
+        raise AssertionError(f"the ranks restored {owned}, expected uw_0 and uw_2 on rank 0, "
+                             "uw_1 on rank 1")
+    check_run_dir(run_dir, ("log.txt", "log-rank001.txt", "progress-rank001.json"))
+    check_rank_counts("fp32 preset", rs, per_image["preset"])
+    n_png = len(png_bytes(run_dir))
+    differ = png_differences(one["preset"]["run_dir"], run_dir)
+    if differ or n_png < 12:
+        raise AssertionError(f"{len(differ)} of {n_png} PNGs differ from the one-process run's; "
+                             f"the largest difference per file, in uint8 levels: {differ}")
+    log(f"  (a) fp32 preset, {MH_STEPS} steps, 3 images, cuDNN deterministic: one run dir, rank 0 "
+        f"{owned[0]}, rank 1 {owned[1]}; launches per rank {[r['launches'] for r in rs]}; the "
+        f"{n_png} PNGs equal the one-process run's byte for byte; peaks "
+        f"{[round(r['peak_bytes'] / 2 ** 30, 2) for r in rs]} GiB per rank, "
+        f"{one['preset']['peak_bytes'] / 2 ** 30:.2f} in one process (above what it held before)")
+    out["preset"] = dict(owned=owned, pngs=n_png, bitwise=True,
+                         launches=[r["launches"] for r in rs],
+                         peak_bytes=[r["peak_bytes"] for r in rs],
+                         one_peak_bytes=one["preset"]["peak_bytes"])
+
+    rs = reports["prior"]
+    owned = [[row["image"] for row in r["rows"]] for r in rs]
+    check_run_dir(rs[0]["run_dir"], ["log-rank001.txt"] + [
+        f"single_images/rgb/image_{i}.png" for i in range(MH_RANKS)])
+    if owned != [[0], [1]]:
+        raise AssertionError(f"prior: the ranks sampled {owned}")
+    check_rank_counts("prior", rs, {
+        "group_norm_forward": len(gn_sites) * MH_STEPS, "group_norm_backward": 0,
+        "upsample_nearest_2x": len(ups) * MH_STEPS, "box_sum_2x": len(pools) * MH_STEPS})
+    log(f"  (b) prior, {MH_STEPS} steps, 2 indices on two ranks: one run dir, launches per rank "
+        f"{[r['launches'] for r in rs]}")
+    out["prior"] = dict(owned=owned, launches=[r["launches"] for r in rs])
+
+    out["timing"] = {}
+    for tag in ("float32", "bfloat16"):
+        preset, _, resp, steps, _, _ = cases[tag]
+        rs = reports[tag]
+        check_rank_counts(f"{tag} timing", rs, per_image[tag])
+        t1 = image_step_seconds([one[tag]["rows"]], steps)
+        t2 = image_step_seconds([r["rows"] for r in rs], steps)
+        t = dict(one=t1, two=t2, speedup=t1["seconds"] / t2["seconds"],
+                 warm_speedup=t1["warm_seconds"] / t2["warm_seconds"],
+                 one_peak_bytes=one[tag]["peak_bytes"], rank_peak_bytes=[r["peak_bytes"] for r in rs],
+                 images=MH_TIMING_IMAGES, steps=steps)
+        out["timing"][tag] = t
+        log(f"  (c) {tag} ({preset}, {resp} steps, {MH_TIMING_IMAGES} images), seconds per "
+            f"image-step, all images / without each process's first (images with their "
+            f"post-processing; chains only): one process {t1['seconds']:.5f} / "
+            f"{t1['warm_seconds']:.5f} ({t1['sample_seconds']:.5f} / "
+            f"{t1['warm_sample_seconds']:.5f}), two ranks {t2['seconds']:.5f} / "
+            f"{t2['warm_seconds']:.5f} ({t2['sample_seconds']:.5f} / "
+            f"{t2['warm_sample_seconds']:.5f}): {t['speedup']:.3f}x / {t['warm_speedup']:.3f}x "
+            f"the image-steps a second; peak {one[tag]['peak_bytes'] / 2 ** 30:.2f} GiB in one "
+            f"process (above what it held before), {[round(r['peak_bytes'] / 2 ** 30, 2) for r in rs]} GiB per rank")
+    return out
+
+
+def image_step_seconds(per_rank, steps):
+    """Seconds per image-step of a run whose ranks (a list of progress rows
+    each) start their image loops together, after the run dir's barrier: the
+    slowest rank's sum over its images, of ``seconds`` (each image with its
+    post-processing) and of ``sample_seconds`` (its chain), over the
+    image-steps of all ranks; the ``warm_`` keys leave each rank's first
+    image (its warm-up) out."""
+    out = {}
+    for tag, skip in (("", 0), ("warm_", 1)):
+        n = sum(len(rows) - skip for rows in per_rank) * steps
+        for field in ("seconds", "sample_seconds"):
+            out[tag + field] = max(sum(r[field] for r in rows[skip:]) for rows in per_rank) / n
+    return out
+
+
 def train_row(name, training, report):
     """What the training path adds to a kernel's numbers: its launches over
     the timed train steps, and for K4 its phase-11 times with the parameter
@@ -1753,6 +2085,8 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if sys.argv[1:2] == ["--rank-worker"]:
+        return rank_worker(sys.argv[2:])
     import tempfile
 
     from osmosis_tpu_torch.config import load_yaml
@@ -1763,14 +2097,14 @@ def main():
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/18] device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
+    log(f"[1/19] device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     built = _build.build_all()
-    log(f"[2/18] built CUDA kernels {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/19] built CUDA kernels {sorted(built)} in {time.perf_counter() - t0:.1f} s")
 
-    log("[3/18] kernels against their plain versions at the main path's shapes")
+    log("[3/19] kernels against their plain versions at the main path's shapes")
     gn_sites, ups, pools = main_path_sites(UNetConfig())
     k_hybrid = int(load_yaml(os.path.join(ROOT, "configs", "osmosis_sample_hybrid_config.yaml"))[
         "conditioning"]["params"]["x_prev_every"])
@@ -1778,12 +2112,12 @@ def main():
     rows = check_resample_kernels(ups, pools, report, k_hybrid)
     rows += check_norm_kernels(gn_sites, report, k_hybrid)
 
-    log("[4/18] tiny UNet: card (kernels) against CPU (plain versions), TF32 off")
+    log("[4/19] tiny UNet: card (kernels) against CPU (plain versions), TF32 off")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     tiny = check_tiny_unet()
 
-    log(f"[5/18] main path at full width: preset, {STEPS} respaced steps, one image")
+    log(f"[5/19] main path at full width: preset, {STEPS} respaced steps, one image")
     build_dir = os.path.join(ROOT, "osmosis_tpu_torch", "_build")
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
@@ -1800,32 +2134,32 @@ def main():
             "group_norm_backward": len(gn_sites) * STEPS})
         ckpt = main_path["checkpoint"]
 
-        log(f"[6/18] bf16 fast path at full width: the hybrid preset, ddim{STEPS}, one image")
+        log(f"[6/19] bf16 fast path at full width: the hybrid preset, ddim{STEPS}, one image")
         hybrid, model, hybrid_cfg = run_bf16_hybrid(workdir, ckpt, gn_sites, ups, pools)
-        log("[7/18] bf16 timing by step kind, busy share, UNet rate")
+        log("[7/19] bf16 timing by step kind, busy share, UNet rate")
         hybrid.update(time_bf16_steps(model, hybrid_cfg))
         del model
         log(f"  bf16 seconds per warm step: x_prev {hybrid['x_prev_seconds_per_step']:.4f}, x0 "
             f"{hybrid['x0_seconds_per_step']:.4f}; {smi}")
 
-        log(f"[8/18] RGBD prior sampler at full width: {STEPS} steps, one image, fp32")
+        log(f"[8/19] RGBD prior sampler at full width: {STEPS} steps, one image, fp32")
         prior = run_prior(workdir, ckpt, gn_sites, ups, pools, steps=STEPS)
         log(f"  seconds per prior step: {prior['seconds_per_step']:.4f}; {smi}")
 
-        log("[9/18] rgb_guidance at full width: 10 steps, one image, fp32")
+        log("[9/19] rgb_guidance at full width: 10 steps, one image, fp32")
         rgb = run_rgb_guidance(workdir, ckpt, gn_sites, ups, pools, steps=10)
 
-        log(f"[10/18] haze and simulation presets at full width: {STEPS} steps, one image each, "
+        log(f"[10/19] haze and simulation presets at full width: {STEPS} steps, one image each, "
             "fp32")
         presets = run_haze_and_simulation(workdir, ckpt, gn_sites, ups, pools)
 
-        log(f"[11/18] kernels at batch {FLEET} against their plain versions at the main path's "
+        log(f"[11/19] kernels at batch {FLEET} against their plain versions at the main path's "
             "shapes")
         gn4, ups4, pools4 = main_path_sites(UNetConfig(), batch=FLEET)
         rows += check_resample_kernels(ups4, pools4, report, k_hybrid, suffix="_b4")
         rows += check_norm_kernels(gn4, report, k_hybrid, batch=FLEET, suffix="_b4")
 
-        log(f"[12/18] the batch-{FLEET} fleet at full width: fp32 preset ({STEPS} steps) and bf16 "
+        log(f"[12/19] the batch-{FLEET} fleet at full width: fp32 preset ({STEPS} steps) and bf16 "
             f"hybrid preset (ddim{STEPS}), {FLEET} seeded images, clip_denoised")
         fleet = run_fleet(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
         ucfg = unet_config_from_yaml(load_yaml(os.path.join(
@@ -1839,35 +2173,41 @@ def main():
         del models
         log(f"  {smi}")
 
-        log(f"[13/18] segments and resume: bf16 hybrid preset, ddim{STEPS}, progress_segments 4, "
+        log(f"[13/19] segments and resume: bf16 hybrid preset, ddim{STEPS}, progress_segments 4, "
             "chain_checkpoint, a crash after the first boundary")
         segments = run_segments_and_resume(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
 
-        log("[14/18] best_of 2 with phi_jitter, global_N 2 with global_eta_scale 0.5, async_save:"
+        log("[14/19] best_of 2 with phi_jitter, global_N 2 with global_eta_scale 0.5, async_save:"
             " bf16 hybrid preset, ddim10, one image")
         restarts = run_restarts(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
 
-        log(f"[15/18] training at full width: toy_unet_config(256, 256, 'production'), batch "
+        log(f"[15/19] training at full width: toy_unet_config(256, 256, 'production'), batch "
             f"{TRAIN_BATCH}, fp32, Adam and the EMA")
         training = run_training(main_path["n_params"], gn_sites, ups, pools)
         log(f"  seconds per train step {training['seconds_per_step']:.4f} (batch {TRAIN_BATCH}), "
             f"per image {training['seconds_per_image']:.4f}; peak {training['peak_bytes'] / 2 ** 30:.2f}"
             f" GiB; {smi}")
 
-        log("[16/18] the toy loop: train_toy_prior at 32x32, 300 steps at batch 128, then a "
+        log("[16/19] the toy loop: train_toy_prior at 32x32, 300 steps at batch 128, then a "
             "restore run from its EMA checkpoint; a tiny train step card vs CPU")
         toy = run_toy_loop(workdir)
         toy["card_vs_cpu"] = check_train_step_card_vs_cpu()
 
-        log(f"[17/18] the server at full width: the fast preset (bf16, x_prev every step), "
+        log(f"[17/19] the server at full width: the fast preset (bf16, x_prev every step), "
             f"ddim{STEPS}, three requests")
         served = run_serve(workdir, ckpt, gn_sites, ups, pools)
         log(f"  ms per request {served['ms_per_request']}, per step "
             f"{[round(m, 1) for m in served['ms_per_step']]}; {smi}")
 
-        log("[18/18] the quality tools at toy size: simulate_degraded, validate_toy_e2e, "
+        log("[18/19] the quality tools at toy size: simulate_degraded, validate_toy_e2e, "
             "demo_toy_restore, validate_checkpoint --tiny")
         quality = run_quality_tools(workdir, toy["checkpoint"])
+
+        log(f"[19/19] two ranks on one card through the CLI: the fp32 preset ({MH_STEPS} steps, 3 "
+            f"images) against one process, the prior, the fp32 and bf16 hybrid presets timed")
+        t0 = time.perf_counter()
+        multihost = run_multihost(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
+        log(f"  phase 19 took {time.perf_counter() - t0:.1f} s; {smi}")
 
     meta = {
         "upsample_nearest_2x": ("cuda", "osmosis_tpu_torch/ops/csrc/upsample.cu",
@@ -1908,6 +2248,8 @@ def main():
                             fleet_fp32_launches=fleet["float32"]["launches"][name],
                             fleet_bf16_launches=fleet["bfloat16"]["launches"][name],
                             serve_launches_per_request=served["launches_per_request"][name],
+                            multihost_launches_per_rank=[
+                                c[name] for c in multihost["preset"]["launches"]],
                             **train_row(name, training, report)))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_report.json"), "w") as f:
@@ -1915,6 +2257,7 @@ def main():
                        main_path=main_path, bf16_hybrid=hybrid, prior=prior, rgb_guidance=rgb,
                        presets=presets, fleet=fleet, segments=segments, restarts=restarts,
                        training=training, toy=toy, serve=served, quality=quality,
+                       multihost=multihost,
                        seconds=time.perf_counter() - t_start), f, indent=1, default=str)
     log(f"  per-shape rows in results/chip_smoke_report.json; "
         f"total {time.perf_counter() - t_start:.1f} s")

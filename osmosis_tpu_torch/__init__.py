@@ -8,3 +8,25 @@ points run on CUDA unless the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"
+
+# the top-level API, imported at first use: name -> the module that defines it
+_LAZY = {
+    "run_restoration": "pipelines.restore",
+    "run_prior_sampling": "pipelines.prior",
+    "UNetModel": "models.unet",
+    "UNetConfig": "models.unet",
+    "unet_config_from_yaml": "models.unet",
+    "make_schedule": "diffusion.schedules",
+    "SamplerConfig": "diffusion.sampler",
+    "sample_loop": "diffusion.sampler",
+    "GuidanceConfig": "diffusion.guided",
+    "guided_sample_loop": "diffusion.guided",
+}
+
+
+def __getattr__(name):
+    if name not in _LAZY:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(f".{_LAZY[name]}", __name__), name)

@@ -5,7 +5,8 @@ The minimal prior sampler of the reference (osmosis_utils/diffusion.py) is
 :func:`osmosis_tpu_torch.diffusion.sampler.sample_loop` with
 ``model_var_type='fixed_small'``, the model fed 1-indexed timesteps (a +1
 offset), over the LAST ``timestep_respacing`` steps of the unrespaced
-schedule. The UNet runs under ``torch.no_grad``: forwards only.
+schedule. The UNet runs under ``torch.no_grad``: forwards only. In a
+multi-process run sample index i goes to rank i % P, into one run dir.
 """
 
 from __future__ import annotations
@@ -20,14 +21,16 @@ import numpy as np
 import torch
 
 from .. import config as C
+from .. import perf as PF
 from ..data import postprocess as P
 from ..diffusion.sampler import SamplerConfig, sample_loop
 from ..diffusion.schedules import make_schedule
 from ..models.convert import load_unet
 from ..models.unet import unet_config_from_yaml
-from ..utils.logging import RunLogger
-from ..utils.rundir import make_output_dirs, update_save_dir_date
-from .restore import precision_str, resolve_device, torso_dtype
+from ..parallel import multihost as MH
+from ..utils.rundir import make_output_dirs
+from .restore import (allocate_run_dir, configure_logger, finish_multihost, precision_str,
+                      resolve_device, torso_dtype)
 
 
 def run_prior_sampling(config_file: str, device="cuda:0",
@@ -43,17 +46,18 @@ def run_prior_sampling(config_file: str, device="cuda:0",
     """
     dev = resolve_device(device)
     args = C.arguments_from_file(config_file)
+    perf = PF.configure_from_dict(getattr(args, "perf", None))
     if dev.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     image_size = args.unet_model["image_size"]
 
-    out_path = update_save_dir_date(
-        os.path.abspath(pjoin(save_dir_override or args.save_dir, "RGBD_prior")))
-    C.config_snapshot(config_file, pjoin(out_path, "configurations.txt"))
+    out_path = allocate_run_dir(
+        os.path.abspath(pjoin(save_dir_override or args.save_dir, "RGBD_prior")), config_file,
+        perf, barrier="prior_rundir")
     paths = make_output_dirs(out_path, args.save_singles, args.save_grids,
                              singles_subdirs=("rgb", "depth_color"))
-    logger = RunLogger(out_path)
+    logger = configure_logger(out_path, dev)
     logger.log(f"pretrained model file: {args.unet_model['model_path']}")
 
     dtype = torso_dtype(args, dtype)
@@ -73,7 +77,7 @@ def run_prior_sampling(config_file: str, device="cuda:0",
         rec = [t for t in range(T) if (t + 1) % args.record_every == 0] + [0]
         record_steps = tuple(sorted(set(rec), reverse=True))
 
-    for im_idx in range(args.number_of_images):
+    for im_idx in MH.host_slice(args.number_of_images):
         start_time = datetime.datetime.now()
         logger.log(f"\nInference image {im_idx}/{args.number_of_images}\n")
         gen = torch.Generator(device=dev).manual_seed(args.manual_seed * 1_000_003 + im_idx)
@@ -112,6 +116,7 @@ def run_prior_sampling(config_file: str, device="cuda:0",
         logger.logkv("sample_seconds", sample_seconds)
         logger.logkv("sample_finite", bool(np.isfinite(x).all()))
         logger.dumpkvs()
+    finish_multihost(logger, "prior_done")
     logger.close()
     return out_path
 

@@ -22,6 +22,10 @@ The JAX package's extensions, with its config keys:
     (:mod:`osmosis_tpu_torch.utils.chainjournal`), so ``resume: True``
     continues an interrupted image mid-chain;
   * ``perf.async_save``: an image's PNG work overlaps the next chain.
+
+In a multi-process run (:mod:`osmosis_tpu_torch.parallel.multihost`) every
+process runs this same function: image i goes to rank i % P, into one run dir
+that rank 0 allocates, and rank r > 0 logs to ``log-rank{r:03d}.txt``.
 """
 
 from __future__ import annotations
@@ -54,9 +58,10 @@ from ..guidance.noise import get_noiser
 from ..guidance.operators import convert_depth, get_operator
 from ..models.convert import load_unet
 from ..models.unet import unet_config_from_yaml
+from ..parallel import multihost as MH
 from ..parallel.runner import lane, make_batched_segment_runner, map_tensors
+from ..utils import logging as L
 from ..utils.chainjournal import ChainJournal
-from ..utils.logging import RunLogger
 from ..utils.profiling import PhaseTimers
 from ..utils.rundir import make_output_dirs, update_save_dir_date
 
@@ -84,6 +89,41 @@ def _better_loss(new_fl, best_fl) -> bool:
     if best_fl is None:
         return True
     return bool(new_fl < best_fl or (np.isnan(best_fl) and np.isfinite(new_fl)))
+
+
+def allocate_run_dir(base_dir: str, config_file: str, perf, resume: bool = False,
+                     barrier: str = "rundir_allocated") -> str:
+    """The run dir ``<base_dir>/<d-m-yy>/runN`` (with ``resume`` today's
+    latest one) and its configurations.txt: the config, then the perf knobs.
+    In a multi-process run rank 0 allocates it and writes the file, and after
+    the barrier the other ranks re-enter it."""
+    if MH.process_index() == 0:
+        out_path = update_save_dir_date(base_dir, resume=resume)
+        C.config_snapshot(config_file, pjoin(out_path, "configurations.txt"))
+        with open(pjoin(out_path, "configurations.txt"), "a") as f:
+            f.write(PF.snapshot_text(perf))
+    if MH.is_multihost():
+        MH.barrier(barrier)
+        if MH.process_index() != 0:
+            out_path = update_save_dir_date(base_dir, resume=True)
+    return out_path
+
+
+def configure_logger(out_path: str, device):
+    """The run's logger: ``log.txt`` on rank 0, ``log-rank{r:03d}.txt`` on
+    rank r, which first logs its place in a multi-process run."""
+    logger = L.configure(out_path, rank_suffix=MH.rank_suffix())
+    if MH.is_multihost():
+        logger.log(f"multi-host run: process {MH.process_index()}/{MH.process_count()}, "
+                   f"device {device}")
+    return logger
+
+
+def finish_multihost(logger, name):
+    """Every rank waits for the others' slices, then says so."""
+    if MH.is_multihost():
+        MH.barrier(name)
+        logger.log(f"multi-host: all processes finished (this rank: {MH.process_index()})")
 
 
 def _grad_mode_str(cp):
@@ -304,13 +344,10 @@ def run_restoration(config_file: str, device="cuda:0",
     resume = bool(getattr(args, "resume", False))
     operator_name = measure_config["operator"]["name"]
     base = save_dir_override or args.save_dir
-    out_path = update_save_dir_date(
-        os.path.abspath(pjoin(base, operator_name, data_config["name"])), resume=resume)
-    C.config_snapshot(config_file, pjoin(out_path, "configurations.txt"))
-    with open(pjoin(out_path, "configurations.txt"), "a") as f:
-        f.write(PF.snapshot_text(perf))
+    out_path = allocate_run_dir(os.path.abspath(pjoin(base, operator_name, data_config["name"])),
+                                config_file, perf, resume=resume)
     paths = make_output_dirs(out_path, args.save_singles, args.save_grids)
-    logger = RunLogger(out_path)
+    logger = configure_logger(out_path, dev)
     logger.log(f"pretrained model file: {args.unet_model['model_path']}")
     if not rgb_guidance:
         _log_run_header(logger, args, dev, dtype)
@@ -382,6 +419,7 @@ def run_restoration(config_file: str, device="cuda:0",
             _run_fleet(run, batch_size, save)
         else:
             _run_serial(run, save)
+    finish_multihost(logger, "fleet_done" if batch_size > 1 else "serial_done")
     logger.log(run.timers.summary())
     logger.close()
     return out_path
@@ -465,11 +503,14 @@ def _run_trial(run, seed, x_start, y, phi, journal, saved, try_k, what="chain"):
 
 def _items(run):
     """The dataset walk: ``(i, ref_img, ref_img_name, orig_name, gt)`` for
-    every image to run; with ``resume`` an image whose output exists is
-    skipped."""
-    for i, (ref_img, ref_img_name) in enumerate(run.dataset):
-        if i == run.stop_after:
-            break
+    every image this process owns (i % P == rank, the first ``stop_after``
+    images only when that is set); with ``resume`` an image whose output
+    exists is skipped."""
+    n = len(run.dataset)
+    if run.stop_after is not None and run.stop_after >= 0:
+        n = min(n, run.stop_after)
+    for i in MH.host_slice(n):
+        ref_img, ref_img_name = run.dataset[i]
         gt = None
         if run.gt_flag:
             ref_img, gt_rgb, gt_depth = ref_img

@@ -2,14 +2,20 @@
 RGBD_prior_sampling.py:
 
     python -m osmosis_tpu_torch.prior_sample -c <config.yaml> -d <cuda index> [--cpu] [--bf16]
+        [--coordinator HOST:PORT --num-processes N --process-id I | --multihost]
 
 Runs on CUDA device ``-d``; ``--cpu`` runs on the CPU instead. Without a card
 and without ``--cpu`` it fails rather than falling back. ``--bf16`` runs the
-UNet torso in bfloat16 (fp32 GroupNorm statistics).
+UNet torso in bfloat16 (fp32 GroupNorm statistics). With the cluster flags
+(or ``--multihost`` alone under torchrun) the process is one rank of a
+multi-process run (:mod:`osmosis_tpu_torch.parallel.multihost`): the ranks
+split the sample indices into one run dir.
 """
 
 import os
 from argparse import ArgumentParser
+
+from .parallel import multihost as MH
 
 
 def main(argv=None):
@@ -20,7 +26,9 @@ def main(argv=None):
     parser.add_argument("--cpu", action="store_true", help="run on the CPU")
     parser.add_argument("--bf16", action="store_true",
                         help="run the UNet torso in bfloat16 (fp32 GroupNorm statistics)")
+    MH.add_cli_arguments(parser)
     args = parser.parse_args(argv)
+    MH.initialize_from_cli(args)
     config_file = os.path.abspath(args.config_file)
     print(f"\nConfiguration file:\n{config_file}\n")
 

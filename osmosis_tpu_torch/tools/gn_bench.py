@@ -12,12 +12,16 @@ the parameter-gradient sums; the other checkout's backward as it is. Per site
 the two versions are timed in turns, other, this, this, other, and each is
 the mean of its two turns, and their outputs (y and the statistics; dx and
 the parameter sums) are compared: ``identical`` where every output has the
-same bits, else the largest difference. "split" is this checkout's two-launch geometry
+same bits, else the largest difference. Beside each kernel: its eager time
+(back-to-back calls by CUDA events, ``utils.timing.cuda_time_ms``), its plain
+PyTorch version's device time, the library call's and the byte bound.
+"split" is this checkout's two-launch geometry
 forced with ``MAX_CLUSTER = 0``. ``--set`` overrides a geometry constant of
 ``ops.group_norm`` (``TILE_BUDGET``, ``MAX_THREADS``, ``MAX_CLUSTER``,
 ``RESIDENT_ROW_BYTES``, ``SPLIT_THREADS``, ``SPLIT_ROW_BYTES``,
 ``SPLIT_CTAS_PER_SM``) for the run;
-``--quick`` times only the planned geometry; ``--profile`` adds each device
+``--quick`` times only the planned geometry, without the eager, plain and
+library times; ``--profile`` adds each device
 kernel's time per call from ``torch.profiler`` at the sites of 64x64 and up,
 and the time of ``x.clone()`` (one read and one write of x, a yardstick of
 the card's streaming rate). Prints one table row per site, then the sums
@@ -94,7 +98,7 @@ def main(argv=None):
     from chip_smoke import counted, main_path_sites
     from osmosis_tpu_torch.models.unet import UNetConfig
     from osmosis_tpu_torch.ops import group_norm as G
-    from osmosis_tpu_torch.utils.timing import graph_time_ms
+    from osmosis_tpu_torch.utils.timing import cuda_time_ms, graph_time_ms
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -132,6 +136,9 @@ def main(argv=None):
                 return lambda: G.group_norm_backward(gy, x, wgt, bias, fs, ft, silu, m, i,
                                                      param_grads=False)
             return lambda: mod.group_norm_backward(gy, x, wgt, bias, fs, ft, silu, m, i)
+
+        plain = {"fwd": lambda: G.group_norm_forward_plain(x, wgt, bias, fs, ft, silu),
+                 "bwd": lambda: G.group_norm_backward_plain(gy, x, wgt, bias, fs, ft, silu, m, i)}
 
         def lib_fwd(xin=x):
             hh = F.group_norm(xin, 32, wgt.to(dtype), bias.to(dtype), 1e-5)
@@ -181,20 +188,26 @@ def main(argv=None):
             row["kernels_us"] = {d: kernel_times(make()) for d, make in (("fwd", fwd), ("bwd", bwd))}
             print(f"    copy {row['copy_us']:.1f} us; kernels {row['kernels_us']}", flush=True)
         if args.quick:
-            row["fwd_library_us"] = row["bwd_library_us"] = float("nan")
+            for d in ("fwd", "bwd"):
+                row[f"{d}_library_us"] = row[f"{d}_eager_us"] = row[f"{d}_plain_us"] = float("nan")
         else:
             row["fwd_library_us"] = graph_time_ms(lib_fwd) * 1e3
             row["bwd_library_us"] = max(graph_time_ms(lib_fwd_bwd) * 1e3
                                         - row["fwd_library_us"], 0)
+            for d, make in (("fwd", fwd), ("bwd", bwd)):
+                row[f"{d}_eager_us"] = cuda_time_ms(make()) * 1e3
+                row[f"{d}_plain_us"] = graph_time_ms(plain[d]) * 1e3
         rows.append(row)
         print(f"C={c:5d} {h:3d}x{w:<3d} {mode:4s} x{n:<2d} " + " | ".join(
             f"{d} {row[f'{d}_geometry']:11s} {row[f'{d}_us']:7.1f}"
             + (f" other {row[f'{d}_other_us']:7.1f} ({row[f'{d}_vs_other']})"
                if other is not None else "")
-            + f" split {row[f'{d}_split_us']:7.1f} lib {row[f'{d}_library_us']:7.1f}"
+            + f" split {row[f'{d}_split_us']:7.1f} eager {row[f'{d}_eager_us']:7.1f}"
+            f" plain {row[f'{d}_plain_us']:7.1f} lib {row[f'{d}_library_us']:7.1f}"
             f" bound {row[f'{d}_bound_us']:6.1f}" for d in ("fwd", "bwd")), flush=True)
 
-    keys = ["us", "split_us", "library_us", "bound_us"] + (["other_us"] if other else [])
+    keys = ["us", "split_us", "eager_us", "plain_us", "library_us", "bound_us"] + (
+        ["other_us"] if other else [])
     classes = {}
     for row in rows:
         for cls in (site_class(row["H"]), "all"):

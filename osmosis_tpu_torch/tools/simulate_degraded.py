@@ -130,10 +130,11 @@ def simulate_dataset(out: str, scenes: Iterable[Scene],
                      operator_name: str = "underwater_physical_revised", phi_spec=None,
                      depth_type: str = "gamma", depth_value: str = "1.4,1.4,1",
                      noise: str = "clean", sigma: float = 0.05, phi_jitter: float = 0.0,
-                     seed: int = 0, device="cpu") -> dict:
+                     seed: int = 0, device="cuda:0") -> dict:
     """Write the simulation layout from (name, rgbd in [-1, 1]) pairs, the
-    operator's forward on ``device``; returns the manifest."""
-    dev = torch.device(device)
+    operator's forward on ``device`` (the card unless the caller asks for the
+    CPU); returns the manifest."""
+    dev = resolve_device(device)
     for sub in ("input", "gt_rgb", "gt_depth"):
         os.makedirs(os.path.join(out, sub), exist_ok=True)
 

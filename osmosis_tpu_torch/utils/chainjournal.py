@@ -130,7 +130,13 @@ class ChainJournal:
     def __init__(self, run_dir: str, image_name: str, fingerprint: str):
         self.dir = os.path.join(run_dir, ".chain_state", image_name)
         self.fp = fingerprint
-        os.makedirs(self.dir, exist_ok=True)
+        for attempt in range(3):
+            try:
+                os.makedirs(self.dir, exist_ok=True)
+                break
+            except FileNotFoundError:  # another rank's clear() took the empty parent
+                if attempt == 2:
+                    raise
 
     def _chain_path(self, try_k: int, global_ii: int) -> str:
         return os.path.join(self.dir, f"chain_{try_k}_{global_ii}.npz")

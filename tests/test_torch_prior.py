@@ -182,3 +182,25 @@ def test_prior_entry_points_refuse_to_fall_back_to_the_cpu(tmp_path, monkeypatch
         run_prior_sampling(_prior_config(tmp_path))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["-c", _prior_config(tmp_path), "-d", "0"])
+
+
+def test_prior_and_restore_run_dirs_end_with_the_perf_knobs(tmp_path):
+    """configurations.txt: the config, then the perf snapshot, in the prior's
+    run dir as in the restore run's."""
+    from osmosis_tpu_torch import perf as PF
+    from osmosis_tpu_torch.pipelines.restore import run_restoration
+    from tests.test_torch_pipeline import _config
+
+    perf = dict(async_save=True, strip_count=8)
+    want = PF.snapshot_text(PF.configure_from_dict(perf))
+    prior = run_prior_sampling(_prior_config(tmp_path, number_of_images=1, save_grids=False,
+                                             record_process=False, perf=perf), device="cpu")
+    images = str(tmp_path / "images")
+    os.makedirs(images)
+    Image.fromarray(np.full((40, 48, 3), 90, np.uint8)).save(pjoin(images, "img_0.png"))
+    restore = run_restoration(_config(tmp_path, images, perf=perf, save_grids=False,
+                                      record_process=False), device="cpu")
+    for out in (prior, restore):
+        with open(pjoin(out, "configurations.txt")) as f:
+            text = f.read()
+        assert text.endswith(want) and "perf:" in text[:-len(want)], out

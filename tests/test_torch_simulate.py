@@ -54,7 +54,7 @@ def _pngs(out):
 def test_dataset_matches_the_jax_tool(tmp_path, operator, noise, jitter):
     scenes = _scenes()
     kw = dict(operator_name=operator, noise=noise, sigma=0.05, phi_jitter=jitter, seed=4)
-    got = S.simulate_dataset(str(tmp_path / "port"), scenes, **kw)
+    got = S.simulate_dataset(str(tmp_path / "port"), scenes, device="cpu", **kw)
     want = J.simulate_dataset(str(tmp_path / "jax"), scenes, **kw)
     assert got == want
     with open(tmp_path / "port" / "manifest.json") as f, \
@@ -106,7 +106,8 @@ def test_roundtrip(tmp_path, operator):
     """The operator's forward on the saved GT with the manifest's phi gives
     the saved input within a few levels (the GT went through uint8/uint16)."""
     out = str(tmp_path / operator)
-    manifest = S.simulate_dataset(out, S.synth_scenes(2, 16, seed=3), operator_name=operator)
+    manifest = S.simulate_dataset(out, S.synth_scenes(2, 16, seed=3), operator_name=operator,
+                                  device="cpu")
     assert manifest["count"] == 2
     assert sorted(os.listdir(os.path.join(out, "input"))) == ["scene_0.png", "scene_1.png"]
     for name, phi in manifest["images"].items():
@@ -128,15 +129,17 @@ def test_synth_scenes_are_seeded_per_scene():
 
 def test_phi_jitter_varies_per_image(tmp_path):
     manifest = S.simulate_dataset(str(tmp_path / "jit"), S.synth_scenes(3, 16, seed=0),
-                                  operator_name="haze_physical", phi_jitter=0.15, seed=7)
+                                  operator_name="haze_physical", phi_jitter=0.15, seed=7,
+                                  device="cpu")
     abs_ = [manifest["images"][f"scene_{i}"]["phi_ab"][0] for i in range(3)]
     assert len(set(abs_)) == 3 and all(a > 0 for a in abs_)
 
 
 def test_gaussian_noise_in_png(tmp_path):
     clean, noisy = str(tmp_path / "clean"), str(tmp_path / "noisy")
-    S.simulate_dataset(clean, S.synth_scenes(1, 16, seed=5))
-    S.simulate_dataset(noisy, S.synth_scenes(1, 16, seed=5), noise="gaussian", sigma=0.1)
+    S.simulate_dataset(clean, S.synth_scenes(1, 16, seed=5), device="cpu")
+    S.simulate_dataset(noisy, S.synth_scenes(1, 16, seed=5), noise="gaussian", sigma=0.1,
+                       device="cpu")
     a = np.asarray(Image.open(os.path.join(clean, "input", "scene_0.png")), dtype=np.float32)
     b = np.asarray(Image.open(os.path.join(noisy, "input", "scene_0.png")), dtype=np.float32)
     assert np.std(b - a) > 5.0  # ~0.1 * 255 noise is present
@@ -154,7 +157,7 @@ def test_simulated_protocol_phi_error_loop(tmp_path):
     from tests.test_pipelines_e2e import DIFFUSION, PATTERN, TINY_UNET
 
     sim = str(tmp_path / "sim")
-    S.simulate_dataset(sim, S.synth_scenes(1, 32, seed=11))
+    S.simulate_dataset(sim, S.synth_scenes(1, 32, seed=11), device="cpu")
     cfg = dict(
         save_dir=str(tmp_path / "results"), degamma_input=False, manual_seed=0,
         rgb_guidance=False, save_singles=True, save_grids=False, record_process=False,
