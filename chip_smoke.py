@@ -6,7 +6,9 @@
 Phases, each of which raises (and so exits non-zero) on a failed check:
   1. device: the card's name and power limit;
   2. build: the CUDA C++ kernels (K1-K4) from osmosis_tpu_torch/ops/csrc with
-     nvcc for sm_90a, one nvcc per source, all started together;
+     nvcc for sm_90a, one nvcc per source, all started together, and the
+     native host ops (osmosis_tpu_torch/utils/csrc/host_ops.cc, g++ with
+     zlib), whose build failure raises;
   3. kernels: every kernel (K1-K4) against its plain PyTorch version at every
      shape the main path gives it, fp32 and bf16, forward and backward (K4
      with and without its parameter sums), timed
@@ -54,6 +56,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
  13. progress_segments and chain_checkpoint on the bf16 hybrid preset: two
      plain runs compared, then a run killed after its first boundary and
      resumed, whose PNGs must equal the uninterrupted run's byte for byte;
+     the same kill and resume on the fp32 preset (ddim20, clip_denoised),
+     whose chain_checkpoint runs take cuDNN's deterministic algorithms;
  14. best_of 2 with phi_jitter, global_N 2 with global_eta_scale 0.5 and
      async_save, asserted by their log lines;
  15. training at full width: the toy-prior trainer's step (Adam and the EMA)
@@ -88,11 +92,22 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
      algorithms and the UNet's repeated calls show why),
      the prior on two indices, and the fp32 preset (10 steps) and the bf16
      hybrid preset (ddim20) on four images each, timed in one process and in
-     two: seconds per image-step and each rank's peak memory.
+     two: seconds per image-step and each rank's peak memory;
+ 20. the day-one runbook (``tools.real_weights_runbook.main``) at full width
+     on the card, every stage: the seeded checkpoint converted and checked,
+     the underwater and haze simulation sets built from a seeded GT scene,
+     the reference, x0_turbo, hybrid_turbo, haze, rgb and prior presets cut
+     to ddim10 (clip_denoised; the prior: 2 images, its last 10 steps), one
+     image each, scored and gated, with each preset's launch counts (K4 on
+     the x_prev steps only) and no preset failing; ``tools.seed_replicate``
+     on one cell, overridden to phase 16's toy EMA and 2 scenes, its row in a
+     workdir grid; the native host ops against their numpy paths (the same
+     values, host ms per image).
 The line before the last gives the card's name and power limit, the one
 before it the kernels' JSON summary (each kernel's fp32 numbers on the main
 path, its bf16 per-step numbers on the hybrid path, at batch 4, per train
-step, and its launches per served request); the last line is the result.
+step, its launches per served request and per runbook preset); the last
+line is the result.
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
 """
@@ -621,19 +636,16 @@ def run_main_path(workdir):
     import torch
 
     from osmosis_tpu_torch.config import load_yaml
-    from osmosis_tpu_torch.models.convert import init_unet
     from osmosis_tpu_torch.models.unet import unet_config_from_yaml
     from osmosis_tpu_torch.ops import group_norm as G
     from osmosis_tpu_torch.pipelines.restore import run_restoration
+    from osmosis_tpu_torch.tools.runbook_rehearsal import seeded_checkpoint
 
     cfg_yaml = load_yaml(os.path.join(ROOT, "configs", "osmosis_sample_config.yaml"))
     ucfg = unet_config_from_yaml(cfg_yaml["unet_model"])
     t0 = time.perf_counter()
-    model = randomize_zero_inits(init_unet(ucfg, seed=0), seed=1)
-    n_params = sum(p.numel() for p in model.parameters())
     pt = os.path.join(workdir, "random_init.pt")
-    torch.save(model.state_dict(), pt)
-    del model
+    n_params = seeded_checkpoint(pt)
     log(f"  seeded random-init checkpoint: {n_params / 1e6:.1f}M params, "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -1216,9 +1228,10 @@ def run_segments_and_resume(workdir, checkpoint, gn_sites, ups, pools, k_hybrid)
     give the same bits? cuDNN may pick nondeterministic algorithms), one with
     it, and one killed after its first boundary save
     (OSMOSIS_TPU_CRASH_AFTER_SEGMENTS) and resumed: its PNGs must equal the
-    uninterrupted chain_checkpoint run's byte for byte."""
-    import osmosis_tpu_torch.pipelines.restore as R
-
+    uninterrupted chain_checkpoint run's byte for byte. Then the fp32 preset
+    (ddim STEPS, clip_denoised) with chain_checkpoint, which takes cuDNN's
+    deterministic algorithms: uninterrupted, and killed after its first
+    boundary and resumed, byte for byte."""
     full = len(range(0, STEPS, k_hybrid))
     counts = preset_counts(gn_sites, ups, pools, STEPS, full)
     out, runs = {}, {}
@@ -1242,39 +1255,92 @@ def run_segments_and_resume(workdir, checkpoint, gn_sites, ups, pools, k_hybrid)
         f"same as them: {runs['checkpoint'] == runs['plain_a']}; ms a step: plain "
         f"{ms['plain_a']:.1f} / {ms['plain_b']:.1f}, chain_checkpoint {ms['checkpoint']:.1f}")
 
-    path, _ = write_preset(workdir, "osmosis_sample_hybrid_config.yaml", checkpoint,
-                           name="seg_crash.yaml", timestep_respacing=f"ddim{STEPS}",
-                           clip_denoised=True, top=dict(
+    resumed = crash_then_resume(workdir, "osmosis_sample_hybrid_config.yaml", "seg", checkpoint,
+                                preset_counts(gn_sites, ups, pools, STEPS - 4, full - 1),
+                                runs["checkpoint"], 4, "cuDNN default")
+    log(f"  bf16: crash after the first boundary, resume from step 4/{STEPS}: the {len(resumed)} "
+        "PNGs equal the uninterrupted run's byte for byte")
+
+    # fp32: the chain_checkpoint run takes cuDNN's deterministic algorithms,
+    # without which its pullback gives other bits from call to call
+    path, _ = write_preset(workdir, "osmosis_sample_config.yaml", checkpoint,
+                           name="seg32_checkpoint.yaml", sampler="ddim",
+                           timestep_respacing=f"ddim{STEPS}", clip_denoised=True, top=dict(
                                progress_segments=4, chain_checkpoint=True,
-                               save_dir=os.path.join(workdir, "seg_crash")))
+                               save_dir=os.path.join(workdir, "seg32_checkpoint")))
+    rd, _, _, _ = run_counted(path, "fp32 chain_checkpoint",
+                              preset_counts(gn_sites, ups, pools, STEPS, STEPS))
+    fp32 = png_bytes(rd)
+    out["fp32_checkpoint_seconds_per_step"] = check_run_dir(rd, ())["sample_seconds"] / STEPS
+    resumed32 = crash_then_resume(workdir, "osmosis_sample_config.yaml", "seg32", checkpoint,
+                                  preset_counts(gn_sites, ups, pools, STEPS - 5, STEPS - 5),
+                                  fp32, 5, "cuDNN deterministic", sampler="ddim")
+    log(f"  fp32 preset, ddim{STEPS}, chain_checkpoint (cuDNN deterministic, "
+        f"{out['fp32_checkpoint_seconds_per_step'] * 1e3:.1f} ms a step): crash after the first "
+        f"boundary, resume from step 5/{STEPS}: the {len(resumed32)} PNGs equal the "
+        "uninterrupted run's byte for byte")
+    out.update(same_without_deterministic=same_plain,
+               checkpoint_equals_plain=runs["checkpoint"] == runs["plain_a"],
+               resumed_bitwise=True, fp32_resumed_bitwise=True)
+    return out
+
+
+def crash_then_resume(workdir, preset, tag, checkpoint, resumed_counts, want, boundary,
+                      algorithms, **diffusion):
+    """``preset`` (ddim STEPS, clip_denoised, progress_segments 4,
+    chain_checkpoint) killed after its first boundary save
+    (OSMOSIS_TPU_CRASH_AFTER_SEGMENTS), then resumed with the launch counts
+    asserted: it must continue from step ``boundary``, log ``algorithms``,
+    and write ``want``'s PNGs byte for byte. Returns the resumed PNGs."""
+    import osmosis_tpu_torch.pipelines.restore as R
+
+    def preset_path(name, **top):
+        return write_preset(workdir, preset, checkpoint, name=f"{tag}_{name}.yaml",
+                            timestep_respacing=f"ddim{STEPS}", clip_denoised=True,
+                            top=dict(progress_segments=4, chain_checkpoint=True,
+                                     save_dir=os.path.join(workdir, f"{tag}_crash"), **top),
+                            **diffusion)[0]
+
     os.environ["OSMOSIS_TPU_CRASH_AFTER_SEGMENTS"] = str(R._CRASH_SAVES["n"] + 1)
     try:
-        R.run_restoration(path, device="cuda:0")
-        raise AssertionError("the crash hook did not fire")
+        R.run_restoration(preset_path("crash"), device="cuda:0")
+        raise AssertionError(f"{tag}: the crash hook did not fire")
     except RuntimeError as e:
         if "injected crash" not in str(e):
             raise
-        log(f"  crashed as injected: {e}")
+        log(f"  {tag}: crashed as injected: {e}")
     finally:
         del os.environ["OSMOSIS_TPU_CRASH_AFTER_SEGMENTS"]
-    path, _ = write_preset(workdir, "osmosis_sample_hybrid_config.yaml", checkpoint,
-                           name="seg_resume.yaml", timestep_respacing=f"ddim{STEPS}",
-                           clip_denoised=True, top=dict(
-                               progress_segments=4, chain_checkpoint=True, resume=True,
-                               save_dir=os.path.join(workdir, "seg_crash")))
-    resumed_counts = preset_counts(gn_sites, ups, pools, STEPS - 4, full - 1)
-    rd, _, _, _ = run_counted(path, "resume", resumed_counts)
+    rd, _, _, _ = run_counted(preset_path("resume", resume=True), f"{tag} resume",
+                              resumed_counts)
     with open(os.path.join(rd, "log.txt")) as f:
-        if "resuming chain at step 4/20" not in f.read():
-            raise AssertionError("the resumed run did not continue from step 4")
+        text = f.read()
+    if f"resuming chain at step {boundary}/{STEPS}" not in text:
+        raise AssertionError(f"{tag}: the resumed run did not continue from step {boundary}")
+    if f"Convolution algorithms: {algorithms}" not in text:
+        raise AssertionError(f"{tag}: the run did not take {algorithms} algorithms")
     resumed = png_bytes(rd)
-    if resumed != runs["checkpoint"] or len(resumed) != 6:
-        raise AssertionError("the resumed run's PNGs differ from the uninterrupted run's")
-    log(f"  crash after the first boundary, resume from step 4/{STEPS}: the {len(resumed)} PNGs "
-        "equal the uninterrupted run's byte for byte")
-    out.update(same_without_deterministic=same_plain,
-               checkpoint_equals_plain=runs["checkpoint"] == runs["plain_a"],
-               resumed_bitwise=True)
+    if resumed != want or len(resumed) != 6:
+        raise AssertionError(f"{tag}: the resumed run's PNGs differ from the uninterrupted "
+                             f"run's: {png_differences_bytes(resumed, want)}")
+    return resumed
+
+
+def png_differences_bytes(got, want):
+    """{name: the largest difference in uint8 levels, or 'missing'} over the
+    PNGs ({name: bytes}) that differ between two sets."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    out = {}
+    for name in sorted(set(got) | set(want)):
+        if name not in got or name not in want:
+            out[name] = "missing"
+        elif got[name] != want[name]:
+            a, b = (np.asarray(Image.open(io.BytesIO(d[name])), np.int64) for d in (got, want))
+            out[name] = int(np.abs(a - b).max())
     return out
 
 
@@ -1845,51 +1911,24 @@ def check_rank_counts(what, reports, per_image):
 def png_differences(dir_a, dir_b):
     """{relative path: the largest difference in uint8 levels} over the PNGs
     whose bytes differ between two run dirs with the same files."""
-    import numpy as np
-    from PIL import Image
-
     a, b = png_bytes(dir_a), png_bytes(dir_b)
     if sorted(a) != sorted(b):
         raise AssertionError(f"the runs wrote other PNGs: {sorted(a)} against {sorted(b)}")
-    return {k: int(np.abs(np.asarray(Image.open(os.path.join(dir_a, k)), np.int64)
-                          - np.asarray(Image.open(os.path.join(dir_b, k)), np.int64)).max())
-            for k in sorted(a) if a[k] != b[k]}
+    return png_differences_bytes(a, b)
 
 
-def fp32_repeats(checkpoint, calls=3):
+def fp32_repeats(checkpoint):
     """The fp32 UNet's forward and x-pullback at a seeded 256x256 input and
-    t = 999, ``calls`` times, with cuDNN's default algorithms and with its
+    t = 999, three times, with cuDNN's default algorithms and with its
     deterministic ones: does each call give the first call's bits?"""
-    import torch
-
     from osmosis_tpu_torch.config import load_yaml
     from osmosis_tpu_torch.models.convert import load_unet
     from osmosis_tpu_torch.models.unet import unet_config_from_yaml
+    from osmosis_tpu_torch.tools.cudnn_determinism import unet_repeats
 
     ucfg = unet_config_from_yaml(load_yaml(os.path.join(
         ROOT, "configs", "osmosis_sample_config.yaml"))["unet_model"])
-    model = load_unet(checkpoint, ucfg, "cuda")
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    x = torch.randn((1, 256, 256, 4), generator=gen, device="cuda").requires_grad_(True)
-    tt = torch.full((1,), 999.0, device="cuda")
-    out = {}
-    saved = torch.backends.cudnn.deterministic
-    try:
-        for det in (False, True):
-            torch.backends.cudnn.deterministic = det
-            runs = []
-            for _ in range(calls):
-                y = model(x, tt)
-                (dx,) = torch.autograd.grad(y[..., :4].sum(), x)
-                runs.append((y.detach(), dx))
-            out["deterministic" if det else "default"] = dict(
-                forward_repeats=all(torch.equal(runs[0][0], r[0]) for r in runs[1:]),
-                pullback_repeats=all(torch.equal(runs[0][1], r[1]) for r in runs[1:]),
-                pullback_max_abs_diff=max((runs[0][1] - r[1]).abs().max().item()
-                                          for r in runs[1:]))
-    finally:
-        torch.backends.cudnn.deterministic = saved
-    return out
+    return unet_repeats(load_unet(checkpoint, ucfg, "cuda"))
 
 
 def read_rows(run_dir, name="progress.json"):
@@ -2041,6 +2080,165 @@ def run_multihost(workdir, checkpoint, gn_sites, ups, pools, k_hybrid):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the day-one runbook, seed_replicate and the native host ops
+# ---------------------------------------------------------------------------
+
+RUNBOOK_PRESETS = ("reference", "x0_turbo", "hybrid_turbo", "haze", "rgb", "prior")
+RUNBOOK_STEPS = 10  # --smoke-steps: every chain at ddim10 (the prior: its last 10 steps)
+RUNBOOK_PRIOR_IMAGES = 2
+
+
+def runbook_counts(name, entry, gn_sites, ups, pools):
+    """A runbook preset's launches: RUNBOOK_STEPS steps of one image (the
+    prior: RUNBOOK_PRIOR_IMAGES images, forwards only), K4 and the backward
+    resampling at the x_prev steps only (x0_turbo: none; hybrid_turbo:
+    every 4th), twice where a phi stall retried the preset with adam."""
+    steps = RUNBOOK_STEPS
+    if name == "prior":
+        return preset_counts(gn_sites, ups, pools, steps * RUNBOOK_PRIOR_IMAGES, 0)
+    full = {"x0_turbo": 0, "hybrid_turbo": len(range(0, steps, 4))}.get(name, steps)
+    runs = 2 if entry.get("phi_stall_sgd") else 1
+    return {k: v * runs for k, v in preset_counts(gn_sites, ups, pools, steps, full).items()}
+
+
+def run_runbook(workdir, checkpoint, gn_sites, ups, pools):
+    """``real_weights_runbook.main`` in this process on the card, through
+    every stage: stage 1 converts the seeded random-init ``.pt`` (552.8M
+    parameters, 256²) and checks its parity, stage 2 simulates the
+    underwater and haze sets from one seeded GT scene, then the presets
+    RUNBOOK_PRESETS, each with the launch counts zeroed before and read after,
+    scored by ``evaluate`` and gated. The cuts, each printed by the runbook:
+    ``--smoke-steps 10`` (ddim10, clip_denoised; the prior's last 10 steps,
+    2 images), ``--stop-after 1``; n_iter and the widths as each preset has
+    them. Random weights restore nothing, so the gates' verdicts are reported,
+    not asserted."""
+    import torch
+
+    from osmosis_tpu_torch.tools import real_weights_runbook as RB
+
+    gt = os.path.join(workdir, "rb_gt")
+    write_images(os.path.join(gt, "rgb"), 1, 40, "scene")
+    write_depth(os.path.join(gt, "depth"), 1, 41, "scene")
+    out_dir = os.path.join(workdir, "runbook")
+    counts, run_preset = {}, RB.run_preset
+
+    def counted(name, ctx, report):
+        zero_counts()
+        try:
+            return run_preset(name, ctx, report)
+        finally:
+            torch.cuda.synchronize()
+            counts[name] = read_counts()
+
+    argv = ["--checkpoint", checkpoint, "--gt-rgb", os.path.join(gt, "rgb"),
+            "--gt-depth", os.path.join(gt, "depth"), "--out", out_dir, "--stop-after", "1",
+            "--presets", ",".join(RUNBOOK_PRESETS), "--smoke-steps", str(RUNBOOK_STEPS),
+            "--rehearsal-json", os.path.join(out_dir, "rehearsal.json"), "-d", "0"]
+    log(f"  real_weights_runbook {' '.join(argv)}")
+    RB.run_preset = counted
+    t0 = time.perf_counter()
+    try:
+        report = RB.main(argv)
+    finally:
+        RB.run_preset = run_preset
+    wall = time.perf_counter() - t0
+    for name in RUNBOOK_PRESETS:
+        entry = report["presets"].get(name)
+        if entry is None or "error" in entry:
+            raise AssertionError(f"runbook: preset {name}: {entry}")
+        check_counts(f"runbook {name}", counts[name],
+                     runbook_counts(name, entry, gn_sites, ups, pools))
+    failed = [s for s in report["stage_seconds"] if s["stage"].endswith(":error")]
+    if failed:
+        raise AssertionError(f"runbook: a preset failed on its first attempt: {failed}")
+    for f in ("RUNBOOK_REPORT.md", "RUNBOOK_REPORT.json", "rehearsal.json"):
+        if not os.path.exists(os.path.join(out_dir, f)):
+            raise AssertionError(f"runbook: {f} was not written")
+    for s in report["stage_seconds"]:
+        log(f"  stage {s['stage']}: {s['seconds']} s")
+    gates = {}
+    for name in RUNBOOK_PRESETS:
+        e = report["presets"][name]
+        gates[name] = dict(score=e.get("score"), x0_std_contraction=e["x0_std_contraction"],
+                           phi_stall_sgd=bool(e.get("phi_stall_sgd")), kept=e.get("kept"))
+        log(f"  {name}: launches {counts[name]}; score {e.get('score')}; phi stall on sgd "
+            f"{bool(e.get('phi_stall_sgd'))} (kept {e.get('kept', '-')}); x0_std contracts "
+            f"{e['x0_std_contraction']['ok']} ({e['x0_std_contraction']['detail']})")
+    log(f"  the runbook took {wall:.1f} s; RUNBOOK_REPORT.md, RUNBOOK_REPORT.json and the "
+        "rehearsal record written")
+    return dict(wall_s=wall, stages=report["stage_seconds"], launches=counts, gates=gates)
+
+
+def run_seed_replicate(workdir, toy_checkpoint):
+    """``seed_replicate.main`` on one cell (r128_s50_x0, sampling seed 1)
+    through the port's ``validate_toy_e2e`` on the card, the cell's flags
+    overridden to phase 16's 32x32 toy EMA and 2 scenes; its row must land in
+    a grid in the workdir with its seed."""
+    from osmosis_tpu_torch.tools import seed_replicate as SR
+
+    d = os.path.join(workdir, "seed_replicate")
+    grid, summary = os.path.join(d, "grid.jsonl"), os.path.join(d, "summary.json")
+    override = f"--checkpoint {toy_checkpoint} --size 32 --channels 64 --arch toy --scenes 2"
+    t0 = time.perf_counter()
+    SR.main(["--cells", "r128_s50_x0", "--seeds", "1", "--grid", grid, "--summary", summary,
+             "--override", override, "-d", "0"])
+    wall = time.perf_counter() - t0
+    rows = SR.load_grid(grid)
+    if [(r.get("row"), r.get("seed")) for r in rows] != [("r128_s50_x0", 1)]:
+        raise AssertionError(f"seed_replicate: the grid holds {rows}")
+    if not os.path.exists(summary):
+        raise AssertionError("seed_replicate: no summary written")
+    log(f"  seed_replicate r128_s50_x0 seed 1 (override: {override}): {wall:.1f} s, row "
+        f"{json.dumps(rows[0])}")
+    return dict(wall_s=wall, row=rows[0])
+
+
+def run_native_host_ops(workdir, reps=20):
+    """The native host ops against their numpy paths on this machine's host:
+    preprocessing of a data/underwater image and the RGB PNG writer, each
+    ``reps`` times; the same values (preprocessing bit for bit, the PNG's
+    pixels), and host ms per image."""
+    import numpy as np
+    from PIL import Image
+
+    from osmosis_tpu_torch.data import postprocess as P
+    from osmosis_tpu_torch.data import transforms as T
+    from osmosis_tpu_torch.utils import native
+
+    if not native.available():
+        raise AssertionError(f"the native host ops are not in use: {native.status()}")
+    img = Image.open(os.path.join(ROOT, "data", "underwater", "uw_0.png")).convert("RGB")
+    rgb = np.random.default_rng(0).random((256, 256, 3)).astype(np.float32)
+    out, results = {}, {}
+    for path in ("native", "numpy"):
+        if path == "numpy":
+            os.environ[native.NO_NATIVE_ENV] = "1"
+        try:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                x = T.preprocess_image(img, 256)
+            pre = (time.perf_counter() - t0) / reps
+            png = os.path.join(workdir, f"native_{path}.png")
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                P.save_png(rgb, png)
+            save = (time.perf_counter() - t0) / reps
+        finally:
+            os.environ.pop(native.NO_NATIVE_ENV, None)
+        results[path] = (x, np.asarray(Image.open(png)))
+        out[path] = dict(preprocess_ms=pre * 1e3, png_ms=save * 1e3)
+    if not np.array_equal(results["native"][0], results["numpy"][0]):
+        raise AssertionError("native preprocessing differs from the numpy path")
+    if not np.array_equal(results["native"][1], results["numpy"][1]):
+        raise AssertionError("the native PNG decodes to other pixels than PIL's")
+    log(f"  native host ops ({native.status()}), host ms per image, native / numpy: "
+        f"preprocess {img.size[0]}x{img.size[1]} -> 256x256 {out['native']['preprocess_ms']:.3f} / "
+        f"{out['numpy']['preprocess_ms']:.3f}, PNG 256x256 RGB {out['native']['png_ms']:.3f} / "
+        f"{out['numpy']['png_ms']:.3f}; the same values")
+    return out
+
+
 def image_step_seconds(per_rank, steps):
     """Seconds per image-step of a run whose ranks (a list of progress rows
     each) start their image loops together, after the run dir's barrier: the
@@ -2097,14 +2295,22 @@ def main():
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/19] device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
+    log(f"[1/20] device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     built = _build.build_all()
-    log(f"[2/19] built CUDA kernels {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/20] built CUDA kernels {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    from osmosis_tpu_torch.utils import native
 
-    log("[3/19] kernels against their plain versions at the main path's shapes")
+    t0 = time.perf_counter()
+    lib = native.build()  # raises with the compiler's output where it fails
+    if not native.available():
+        raise AssertionError(f"the native host ops built but are not in use: {native.status()}")
+    log(f"  built the native host ops {os.path.basename(lib)} in {time.perf_counter() - t0:.1f} s"
+        f" (g++ {' '.join(native.CXX_FLAGS)}, zlib)")
+
+    log("[3/20] kernels against their plain versions at the main path's shapes")
     gn_sites, ups, pools = main_path_sites(UNetConfig())
     k_hybrid = int(load_yaml(os.path.join(ROOT, "configs", "osmosis_sample_hybrid_config.yaml"))[
         "conditioning"]["params"]["x_prev_every"])
@@ -2112,12 +2318,12 @@ def main():
     rows = check_resample_kernels(ups, pools, report, k_hybrid)
     rows += check_norm_kernels(gn_sites, report, k_hybrid)
 
-    log("[4/19] tiny UNet: card (kernels) against CPU (plain versions), TF32 off")
+    log("[4/20] tiny UNet: card (kernels) against CPU (plain versions), TF32 off")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     tiny = check_tiny_unet()
 
-    log(f"[5/19] main path at full width: preset, {STEPS} respaced steps, one image")
+    log(f"[5/20] main path at full width: preset, {STEPS} respaced steps, one image")
     build_dir = os.path.join(ROOT, "osmosis_tpu_torch", "_build")
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
@@ -2134,32 +2340,32 @@ def main():
             "group_norm_backward": len(gn_sites) * STEPS})
         ckpt = main_path["checkpoint"]
 
-        log(f"[6/19] bf16 fast path at full width: the hybrid preset, ddim{STEPS}, one image")
+        log(f"[6/20] bf16 fast path at full width: the hybrid preset, ddim{STEPS}, one image")
         hybrid, model, hybrid_cfg = run_bf16_hybrid(workdir, ckpt, gn_sites, ups, pools)
-        log("[7/19] bf16 timing by step kind, busy share, UNet rate")
+        log("[7/20] bf16 timing by step kind, busy share, UNet rate")
         hybrid.update(time_bf16_steps(model, hybrid_cfg))
         del model
         log(f"  bf16 seconds per warm step: x_prev {hybrid['x_prev_seconds_per_step']:.4f}, x0 "
             f"{hybrid['x0_seconds_per_step']:.4f}; {smi}")
 
-        log(f"[8/19] RGBD prior sampler at full width: {STEPS} steps, one image, fp32")
+        log(f"[8/20] RGBD prior sampler at full width: {STEPS} steps, one image, fp32")
         prior = run_prior(workdir, ckpt, gn_sites, ups, pools, steps=STEPS)
         log(f"  seconds per prior step: {prior['seconds_per_step']:.4f}; {smi}")
 
-        log("[9/19] rgb_guidance at full width: 10 steps, one image, fp32")
+        log("[9/20] rgb_guidance at full width: 10 steps, one image, fp32")
         rgb = run_rgb_guidance(workdir, ckpt, gn_sites, ups, pools, steps=10)
 
-        log(f"[10/19] haze and simulation presets at full width: {STEPS} steps, one image each, "
+        log(f"[10/20] haze and simulation presets at full width: {STEPS} steps, one image each, "
             "fp32")
         presets = run_haze_and_simulation(workdir, ckpt, gn_sites, ups, pools)
 
-        log(f"[11/19] kernels at batch {FLEET} against their plain versions at the main path's "
+        log(f"[11/20] kernels at batch {FLEET} against their plain versions at the main path's "
             "shapes")
         gn4, ups4, pools4 = main_path_sites(UNetConfig(), batch=FLEET)
         rows += check_resample_kernels(ups4, pools4, report, k_hybrid, suffix="_b4")
         rows += check_norm_kernels(gn4, report, k_hybrid, batch=FLEET, suffix="_b4")
 
-        log(f"[12/19] the batch-{FLEET} fleet at full width: fp32 preset ({STEPS} steps) and bf16 "
+        log(f"[12/20] the batch-{FLEET} fleet at full width: fp32 preset ({STEPS} steps) and bf16 "
             f"hybrid preset (ddim{STEPS}), {FLEET} seeded images, clip_denoised")
         fleet = run_fleet(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
         ucfg = unet_config_from_yaml(load_yaml(os.path.join(
@@ -2173,41 +2379,50 @@ def main():
         del models
         log(f"  {smi}")
 
-        log(f"[13/19] segments and resume: bf16 hybrid preset, ddim{STEPS}, progress_segments 4, "
-            "chain_checkpoint, a crash after the first boundary")
+        log(f"[13/20] segments and resume: bf16 hybrid preset, ddim{STEPS}, progress_segments 4, "
+            "chain_checkpoint, a crash after the first boundary; then the fp32 preset, likewise")
         segments = run_segments_and_resume(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
 
-        log("[14/19] best_of 2 with phi_jitter, global_N 2 with global_eta_scale 0.5, async_save:"
+        log("[14/20] best_of 2 with phi_jitter, global_N 2 with global_eta_scale 0.5, async_save:"
             " bf16 hybrid preset, ddim10, one image")
         restarts = run_restarts(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
 
-        log(f"[15/19] training at full width: toy_unet_config(256, 256, 'production'), batch "
+        log(f"[15/20] training at full width: toy_unet_config(256, 256, 'production'), batch "
             f"{TRAIN_BATCH}, fp32, Adam and the EMA")
         training = run_training(main_path["n_params"], gn_sites, ups, pools)
         log(f"  seconds per train step {training['seconds_per_step']:.4f} (batch {TRAIN_BATCH}), "
             f"per image {training['seconds_per_image']:.4f}; peak {training['peak_bytes'] / 2 ** 30:.2f}"
             f" GiB; {smi}")
 
-        log("[16/19] the toy loop: train_toy_prior at 32x32, 300 steps at batch 128, then a "
+        log("[16/20] the toy loop: train_toy_prior at 32x32, 300 steps at batch 128, then a "
             "restore run from its EMA checkpoint; a tiny train step card vs CPU")
         toy = run_toy_loop(workdir)
         toy["card_vs_cpu"] = check_train_step_card_vs_cpu()
 
-        log(f"[17/19] the server at full width: the fast preset (bf16, x_prev every step), "
+        log(f"[17/20] the server at full width: the fast preset (bf16, x_prev every step), "
             f"ddim{STEPS}, three requests")
         served = run_serve(workdir, ckpt, gn_sites, ups, pools)
         log(f"  ms per request {served['ms_per_request']}, per step "
             f"{[round(m, 1) for m in served['ms_per_step']]}; {smi}")
 
-        log("[18/19] the quality tools at toy size: simulate_degraded, validate_toy_e2e, "
+        log("[18/20] the quality tools at toy size: simulate_degraded, validate_toy_e2e, "
             "demo_toy_restore, validate_checkpoint --tiny")
         quality = run_quality_tools(workdir, toy["checkpoint"])
 
-        log(f"[19/19] two ranks on one card through the CLI: the fp32 preset ({MH_STEPS} steps, 3 "
+        log(f"[19/20] two ranks on one card through the CLI: the fp32 preset ({MH_STEPS} steps, 3 "
             f"images) against one process, the prior, the fp32 and bf16 hybrid presets timed")
         t0 = time.perf_counter()
         multihost = run_multihost(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
         log(f"  phase 19 took {time.perf_counter() - t0:.1f} s; {smi}")
+
+        log(f"[20/20] the day-one runbook at full width ({','.join(RUNBOOK_PRESETS)}; ddim"
+            f"{RUNBOOK_STEPS}, one image), seed_replicate on phase 16's toy EMA, the native "
+            "host ops")
+        t0 = time.perf_counter()
+        runbook = run_runbook(workdir, ckpt, gn_sites, ups, pools)
+        runbook["seed_replicate"] = run_seed_replicate(workdir, toy["checkpoint"])
+        runbook["native"] = run_native_host_ops(workdir)
+        log(f"  phase 20 took {time.perf_counter() - t0:.1f} s; {smi}")
 
     meta = {
         "upsample_nearest_2x": ("cuda", "osmosis_tpu_torch/ops/csrc/upsample.cu",
@@ -2250,6 +2465,8 @@ def main():
                             serve_launches_per_request=served["launches_per_request"][name],
                             multihost_launches_per_rank=[
                                 c[name] for c in multihost["preset"]["launches"]],
+                            runbook_launches_per_preset={
+                                p: runbook["launches"][p][name] for p in RUNBOOK_PRESETS},
                             **train_row(name, training, report)))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_report.json"), "w") as f:
@@ -2257,7 +2474,7 @@ def main():
                        main_path=main_path, bf16_hybrid=hybrid, prior=prior, rgb_guidance=rgb,
                        presets=presets, fleet=fleet, segments=segments, restarts=restarts,
                        training=training, toy=toy, serve=served, quality=quality,
-                       multihost=multihost,
+                       multihost=multihost, runbook=runbook,
                        seconds=time.perf_counter() - t_start), f, indent=1, default=str)
     log(f"  per-shape rows in results/chip_smoke_report.json; "
         f"total {time.perf_counter() - t_start:.1f} s")

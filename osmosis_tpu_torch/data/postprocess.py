@@ -3,9 +3,11 @@
 Numpy re-implementations of the reference's torch helpers
 (osmosis_utils/utils.py:21-159,748-763; torchvision make_grid usage in
 osmosis_sampling.py:338-353). All functions take NHWC / HWC float arrays.
-A copy of the numpy path of ``osmosis_tpu/data/postprocess.py``, with the
-viridis table embedded (:mod:`osmosis_tpu_torch.data.colormap`) instead of
-matplotlib.
+A port of ``osmosis_tpu/data/postprocess.py``: the percentile norm, the
+depth colormap and the RGB PNG writer run in the native host ops
+(:mod:`osmosis_tpu_torch.utils.native`) where they are built, else in numpy
+and PIL; the viridis table is embedded
+(:mod:`osmosis_tpu_torch.data.colormap`) instead of matplotlib's.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import List
 import numpy as np
 from PIL import Image
 
+from ..utils import native
 from .colormap import VIRIDIS
 
 
@@ -38,6 +41,11 @@ def min_max_norm_range_percentile(
     percent_high: float = 1.0,
 ) -> np.ndarray:
     """Percentile clip then min-max normalize (utils.py:79-114)."""
+    out = native.percentile_minmax_norm(
+        np.asarray(img, np.float32), percent_low, percent_high, vmin, vmax
+    )
+    if out is not None:
+        return out
     lo = np.quantile(img, percent_low)
     hi = np.quantile(img, percent_high)
     clipped = np.clip(img, lo, hi)
@@ -59,6 +67,9 @@ def depth_to_color(depth_01: np.ndarray) -> np.ndarray:
     d = np.squeeze(np.asarray(depth_01, np.float32))
     if d.ndim != 2:
         raise ValueError(f"expected 2-D depth, got {d.shape}")
+    out = native.depth_to_color(d, VIRIDIS)
+    if out is not None:
+        return out
     d = np.where(d >= 0, np.minimum(d, 1.0), 0.0).astype(np.float32)
     return VIRIDIS[np.minimum((d * 256.0).astype(np.int64), 255)]
 
@@ -96,5 +107,8 @@ def save_png(img01: np.ndarray, path: str):
         arr = arr[..., 0]
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
+    if arr.ndim == 3 and arr.shape[-1] == 3 and native.png_write_rgb8(tmp, arr):
+        os.replace(tmp, path)
+        return
     Image.fromarray(arr).save(tmp, format="PNG")
     os.replace(tmp, path)

@@ -2,9 +2,10 @@
 
 Reference builds `ToTensor → Resize(256) → CenterCrop(256²) → Normalize(.5,.5)`
 (osmosis_sampling.py:46-49) with torchvision's tensor-path Resize (pure
-half-pixel bilinear). A copy of the numpy path of
-``osmosis_tpu/data/transforms.py``; the port does not use the JAX package's
-native host library.
+half-pixel bilinear). A port of ``osmosis_tpu/data/transforms.py``: the
+native host ops (:mod:`osmosis_tpu_torch.utils.native`, fused resize, crop
+and normalize) where they are built, else the numpy path, which gives the
+same values.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from typing import Union
 
 import numpy as np
 from PIL import Image
+
+from ..utils import native
 
 
 def _small_side_dims(h: int, w: int, size: int):
@@ -74,6 +77,10 @@ def preprocess_image(img: Union[Image.Image, np.ndarray], size: int = 256) -> np
             arr = np.clip(arr, 0, 255).astype(np.uint8)
         if arr.ndim == 2:
             arr = np.stack([arr] * 3, axis=-1)
+
+    out = native.preprocess_rgb_u8(arr, size)
+    if out is not None:
+        return out
 
     h, w = arr.shape[:2]
     new_h, new_w = _small_side_dims(h, w, size)

@@ -28,6 +28,7 @@ the store it serves outlives every peer's wait.
 
 from __future__ import annotations
 
+import atexit
 import datetime
 import os
 import threading
@@ -76,9 +77,23 @@ def initialize(coordinator_address: Optional[str] = None, num_processes: Optiona
     # one trivial collective at once, so gloo's pairs are connected while
     # the ranks are still in step
     dist.all_gather([torch.zeros(()) for _ in range(n)], torch.zeros(()))
+    stop = threading.Event()
+    beat = threading.Thread(target=_heartbeat, args=(store, pid, stop), name="osmosis-heartbeat",
+                            daemon=True)
     if n > 1:
-        threading.Thread(target=_heartbeat, args=(store, pid), name="osmosis-heartbeat",
-                         daemon=True).start()
+        beat.start()
+    atexit.register(_shutdown, stop, beat)
+
+
+def _shutdown(stop, beat):
+    """At exit: the heartbeat stopped and the process group destroyed before
+    the interpreter goes, so that no thread of gloo's or of the store is still
+    running when the process's objects are torn down (which aborts it)."""
+    stop.set()
+    if beat.is_alive():
+        beat.join(timeout=2 * HEARTBEAT_S)
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def add_cli_arguments(parser) -> None:
@@ -99,11 +114,11 @@ def initialize_from_cli(args) -> None:
         initialize(args.coordinator, args.num_processes, args.process_id)
 
 
-def _heartbeat(store, rank):
+def _heartbeat(store, rank, stop):
     try:
-        while True:
+        while not stop.is_set():
             store.add(f"osmosis/heartbeat/{rank}", 1)
-            time.sleep(HEARTBEAT_S)
+            stop.wait(HEARTBEAT_S)
     except Exception:  # the store is gone: rank 0 ended; the main thread finds out
         return
 

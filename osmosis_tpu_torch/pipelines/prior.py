@@ -28,6 +28,7 @@ from ..diffusion.schedules import make_schedule
 from ..models.convert import load_unet
 from ..models.unet import unet_config_from_yaml
 from ..parallel import multihost as MH
+from ..utils import native
 from ..utils.rundir import make_output_dirs
 from .restore import (allocate_run_dir, configure_logger, finish_multihost, precision_str,
                       resolve_device, torso_dtype)
@@ -63,7 +64,7 @@ def run_prior_sampling(config_file: str, device="cuda:0",
     dtype = torso_dtype(args, dtype)
     ucfg = unet_config_from_yaml(args.unet_model)
     model = load_unet(args.unet_model.get("model_path", ""), ucfg, dev, dtype=dtype)
-    logger.log(f"Device: {precision_str(dev, dtype)}")
+    logger.log(f"Device: {precision_str(dev, dtype)}\nHost ops: {native.status()}")
 
     T = args.diffusion["steps"]
     num_steps = int(args.diffusion.get("timestep_respacing", T) or T)

@@ -61,8 +61,9 @@ from ..models.unet import unet_config_from_yaml
 from ..parallel import multihost as MH
 from ..parallel.runner import lane, make_batched_segment_runner, map_tensors
 from ..utils import logging as L
+from ..utils import native
+from ..utils import profiling as prof
 from ..utils.chainjournal import ChainJournal
-from ..utils.profiling import PhaseTimers
 from ..utils.rundir import make_output_dirs, update_save_dir_date
 
 # process-wide count of chain-checkpoint boundary saves, read by the
@@ -148,6 +149,44 @@ def precision_str(device, dtype) -> str:
         return (f"{name}, fp32 with TF32 off "
                 "(cudnn.allow_tf32 = False, cuda.matmul.allow_tf32 = False)")
     return f"{name}, fp32"
+
+
+def cudnn_deterministic(device, dtype, chain_checkpoint: bool) -> bool:
+    """Does a run take cuDNN's deterministic algorithms? On a card a fp32 run
+    with ``chain_checkpoint`` does: cuDNN's default fp32 backward-data
+    algorithm sums in another order from call to call, so without them a
+    resumed chain would continue the chain but not its bits. They cost a
+    fp32 guided step 40% at batch 1 and 19% at batch 4 on an H100 (PERF.md,
+    ``tools/cudnn_determinism``), so other runs keep the default algorithms,
+    with which the bf16 torso repeats its bits. A caller that has set
+    ``torch.backends.cudnn.deterministic`` keeps it."""
+    if device.type != "cuda":
+        return False
+    return bool(torch.backends.cudnn.deterministic) or (
+        dtype == torch.float32 and bool(chain_checkpoint))
+
+
+def algorithms_str(device, deterministic: bool) -> str:
+    """The convolution algorithms a run takes, for the run header."""
+    if device.type != "cuda":
+        return f"{device.type} (no cuDNN)"
+    if deterministic:
+        return ("cuDNN deterministic (cudnn.deterministic = True, cudnn.benchmark = False): "
+                "a fp32 chain repeats its bits")
+    return "cuDNN default (cudnn.deterministic = False)"
+
+
+@contextlib.contextmanager
+def cudnn_algorithms(deterministic: bool):
+    """cuDNN's deterministic algorithms (``benchmark`` off) inside the block
+    where ``deterministic``; the process's own settings again after it."""
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    if deterministic:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
 
 
 def _log_run_header(logger, args, device, dtype):
@@ -275,7 +314,9 @@ def _log_trace_summary(logger, res, max_rows=10):
     if T == 0:
         return
     idx = np.unique(np.linspace(0, T - 1, max_rows).round().astype(int))
-    lines = ["chain telemetry (step runs t=T-1..0):"]
+    # the JAX package's header, word for word, so that either package's
+    # runbook reads either package's log.txt
+    lines = ["chain telemetry (scan trace; step runs t=T-1..0):"]
     for i in idx:
         row = f"  t={T - 1 - i:4d} loss={float(sep[i].mean()):9.3f}"
         row += f" x0_std={float(res.x0_std_trace[i].mean()):.3f}"
@@ -310,7 +351,11 @@ def run_restoration(config_file: str, device="cuda:0",
     Runs on ``device`` (CUDA unless the caller passes ``"cpu"``). The UNet
     torso runs in bfloat16 where the config sets ``use_fp16`` or ``dtype`` is
     ``torch.bfloat16``, else in fp32, which on CUDA runs with TF32 off for
-    cuDNN's convolutions and for matmuls. ``progress_every`` prints the loss
+    cuDNN's convolutions and for matmuls; a fp32 run with ``chain_checkpoint``
+    takes cuDNN's deterministic algorithms (:func:`cudnn_deterministic`), so
+    that a resumed chain writes the uninterrupted one's bytes, and the log
+    says which algorithms and which host ops (native or numpy) the run took.
+    ``progress_every`` prints the loss
     and phi (of the first image of a batch) every that many timesteps.
     ``x_start`` comes from a ``torch.Generator`` seeded with the trial's seed
     (``manual_seed`` + 7919·restart) and the chain noise is keyed on (seed,
@@ -351,6 +396,10 @@ def run_restoration(config_file: str, device="cuda:0",
     logger.log(f"pretrained model file: {args.unet_model['model_path']}")
     if not rgb_guidance:
         _log_run_header(logger, args, dev, dtype)
+    chain_checkpoint = bool(getattr(args, "chain_checkpoint", False))
+    deterministic = cudnn_deterministic(dev, dtype, chain_checkpoint)
+    logger.log(f"Convolution algorithms: {algorithms_str(dev, deterministic)}"
+               f"\nHost ops: {native.status()}")
 
     dcfg = args.diffusion
     schedule = make_schedule(
@@ -381,7 +430,6 @@ def run_restoration(config_file: str, device="cuda:0",
     g_eta = sample_pattern.get("global_eta_scale")  # 0.0 is legal: phi frozen
     batch_size = int(data_config.get("batch_size", 1) or 1)
     progress_segments = int(getattr(args, "progress_segments", 0) or 0)
-    chain_checkpoint = bool(getattr(args, "chain_checkpoint", False))
     chain_fp = chain_fingerprint(args, dtype, dev) if chain_checkpoint else ""
 
     k_align = gcfg.x_prev_every if (gcfg.x_prev_every > 1 and (
@@ -398,7 +446,7 @@ def run_restoration(config_file: str, device="cuda:0",
         best_of=int(getattr(args, "best_of", 1) or 1),
         accept_loss=getattr(args, "accept_loss", None),
         phi_jitter=float(getattr(args, "phi_jitter", 0.0) or 0.0),
-        chain_checkpoint=chain_checkpoint, chain_fp=chain_fp, timers=PhaseTimers(),
+        chain_checkpoint=chain_checkpoint, chain_fp=chain_fp,
         async_save=perf.async_save,
         phi_cold={k: torch.as_tensor(v, device=dev) for k, v in operator.phi_init().items()},
     )
@@ -414,13 +462,14 @@ def run_restoration(config_file: str, device="cuda:0",
                 eta_scale=eta_s, ts=ts, x0_buf_init=buf0, eps_hist_init=eps0,
                 progress_every=progress_every)
     run.chain = _make_chain_fn(seg, schedule, progress_segments, k_align, dev)
-    with _saver(run, backlog=2 * max(global_N, 1) * batch_size) as save:
+    with cudnn_algorithms(deterministic), \
+            _saver(run, backlog=2 * max(global_N, 1) * batch_size) as save:
         if batch_size > 1:
             _run_fleet(run, batch_size, save)
         else:
             _run_serial(run, save)
     finish_multihost(logger, "fleet_done" if batch_size > 1 else "serial_done")
-    logger.log(run.timers.summary())
+    logger.log(prof.TIMERS.summary())
     logger.close()
     return out_path
 
@@ -487,7 +536,7 @@ def _run_trial(run, seed, x_start, y, phi, journal, saved, try_k, what="chain"):
                            "chain checkpoint")
         else:
             t0 = time.perf_counter()
-            with run.timers.phase("sample"):
+            with prof.phase("sample"):
                 res = run.chain(x_start, y, seed, phi_carry, opt_carry, eta_s, logger=run.logger,
                                 journal=journal, tag=(try_k, global_ii))
                 _sync(run.dev)
@@ -588,7 +637,7 @@ def _finish_image(run, res, sample_seconds, ref_img, ref_img_name, orig_name, gl
     ``batch`` is the size of the batched chain it came from, whose time
     ``sample_seconds`` is."""
     logger, paths = run.logger, run.paths
-    with run.timers.phase("postprocess+save"):
+    with prof.phase("postprocess+save"):
         if run.rgb_guidance:
             _save_rgb_guidance_outputs(run.args, paths, orig_name, ref_img, res.sample[0], logger)
         else:

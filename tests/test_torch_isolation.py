@@ -11,6 +11,8 @@ import re
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "osmosis_tpu_torch")
 
@@ -68,3 +70,42 @@ def test_no_source_imports_triton():
 def test_no_source_imports_the_tools_scripts_or_checkpoint_packages():
     offenders = _importers(["tools", "msgpack", "optax", "orbax"])
     assert not offenders, offenders
+
+
+STANDALONE = {
+    # module: code run after importing it as ``m``
+    "osmosis_tpu_torch.tools.real_weights_runbook":
+        "assert all(m.tool_cmd(t)[2] == 'osmosis_tpu_torch.tools.' + t\n"
+        "           for t in ('validate_checkpoint', 'simulate_degraded', 'evaluate'))",
+    "osmosis_tpu_torch.tools.seed_replicate":
+        "assert m.cell_command('r128_s50_x0', 1)[2] == 'osmosis_tpu_torch.tools.validate_toy_e2e'\n"
+        "assert m.GRID.endswith('_torch.jsonl') and m.SUMMARY.endswith('_torch.json')",
+    "osmosis_tpu_torch.tools.cudnn_determinism": "assert callable(m.main)",
+    "osmosis_tpu_torch.utils.native":
+        "import os\n"
+        "m.available()\n"
+        "pkg = os.path.join(os.getcwd(), 'osmosis_tpu_torch')\n"
+        "assert m.SRC.startswith(pkg + os.sep) and m.lib_path().startswith(pkg + os.sep)",
+    "osmosis_tpu_torch.utils.profiling": "m.enable_nan_debugging()",
+    "osmosis_tpu_torch.perf": "assert m.configure_from_dict(None).values",
+}
+
+
+@pytest.mark.parametrize("module", sorted(STANDALONE))
+def test_the_runbook_and_host_modules_stand_alone(module):
+    """The runbook, seed_replicate, the determinism tool, the native host ops
+    (built from the port's own source into the port's build dir), profiling
+    and perf: each imported and used alone loads nothing of JAX, the JAX
+    package or the repo's tools, and the tools drive only the port's tools."""
+    code = (
+        "import importlib, sys\n"
+        f"m = importlib.import_module({module!r})\n"
+        f"{STANDALONE[module]}\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'ml_dtypes', 'osmosis_tpu', 'tools', 'msgpack', 'optax', 'orbax'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, env=env, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
