@@ -102,11 +102,24 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
      the x_prev steps only) and no preset failing; ``tools.seed_replicate``
      on one cell, overridden to phase 16's toy EMA and 2 scenes, its row in a
      workdir grid; the native host ops against their numpy paths (the same
-     values, host ms per image).
+     values, host ms per image);
+ 21. the (dp, tp) mesh (``parallel/mesh``, ``parallel/tp``) through
+     ``tools.mesh_check``: two ranks share cuda:0 over gloo, fp32, TF32 off,
+     cuDNN deterministic, the preset's 552.8M UNet at 256² from the seeded
+     checkpoint: tp=2 (the UNet forward and x-pullback, the 2-step guided
+     chain at batch 1 with clip_denoised) and dp=2 (the fleet runner at N=2
+     with ``mesh=``), every output within rtol/atol 5e-4 (the loss trace
+     1e-3) of one process; each rank's K1-K4 launches those of one process;
+     under tp=2 each rank holds the replicated parameter bytes and half the
+     sharded ones; each rank's peak and seconds. Then the committed orbax
+     fixture (``tests/data/orbax_tiny_unet``) read by ``load_unet`` onto the
+     card with the native zstd decoder, its forward against the recorded one
+     at the UNet parity bar (rtol 1e-3, atol 5e-4).
 The line before the last gives the card's name and power limit, the one
 before it the kernels' JSON summary (each kernel's fp32 numbers on the main
 path, its bf16 per-step numbers on the hybrid path, at batch 4, per train
-step, its launches per served request and per runbook preset); the last
+step, its launches per served request, per runbook preset and per mesh
+rank); the last
 line is the result.
 Without a CUDA device, or without the package beside it, it exits non-zero
 and prints no result.
@@ -137,6 +150,7 @@ TOL = {
     ("resample", "bfloat16"): (0.0, 0.0),
     ("norm", "float32"): (1e-4, 1e-5),
     ("norm", "bfloat16"): (3e-2, 3e-2),
+    ("orbax", "float32"): (1e-3, 5e-4),  # the UNet parity bar
 }
 
 
@@ -2239,6 +2253,104 @@ def run_native_host_ops(workdir, reps=20):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the (dp, tp) mesh on one card, and the orbax fixture
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 2  # the dryrun's production-width chain: 2 steps, n_iter 1, update_start 1
+MESH_LANES = 2
+ORBAX_FIXTURE = os.path.join(ROOT, "tests", "data", "orbax_tiny_unet")
+
+
+def run_mesh(workdir, checkpoint, gn_sites, ups, pools):
+    """Two ranks share cuda:0 over gloo (``tools.mesh_check``), fp32, TF32
+    off, cuDNN deterministic, the preset's 552.8M UNet at 256² from the
+    seeded checkpoint: tp=2 (mesh 1x2: the UNet forward and x-pullback, the
+    2-step guided chain at batch 1) and dp=2 (mesh 2x1: the fleet runner at
+    N=2 with ``mesh=``), each rank against the one-process run of the same
+    check in this process at rtol/atol 5e-4 (1e-3 on the loss trace); each
+    rank's K1-K4 launches equal the one process's (tp: every rank runs every
+    site; dp: the launches of its own lanes, the same count at any batch);
+    under tp=2 a rank holds the replicated bytes and half the sharded ones.
+    Then the committed orbax fixture read by ``load_unet`` onto the card, its
+    forward against the recorded one at the UNet parity bar."""
+    import numpy as np
+    import torch
+
+    from osmosis_tpu_torch.tools import mesh_check
+
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()  # this process's tensors from earlier phases
+    argv = ["--checkpoint", checkpoint, "--out", os.path.join(workdir, "mesh"), "--size", "256",
+            "--ranks", "2", "--backend", "gloo", "--meshes", "1x2,2x1", "--steps",
+            str(MESH_STEPS), "--n-iter", "1", "--update-start", "1", "--lanes",
+            str(MESH_LANES), "-d", "0"]
+    args = mesh_check.parse(argv)
+    t0 = time.perf_counter()
+    summary = mesh_check.launch(args, timeout=400)
+    wall = time.perf_counter() - t0
+    per_step = {"upsample_nearest_2x": len(ups) + len(pools), "box_sum_2x": len(ups) + len(pools),
+                "group_norm_forward": len(gn_sites), "group_norm_backward": len(gn_sites)}
+    steps = {"unet": 1, "chain": MESH_STEPS, "fleet": MESH_STEPS}
+    ref = summary["reference"]
+    for check, n in steps.items():
+        check_counts(f"mesh reference {check}", ref[check]["launches"],
+                     {k: v * n for k, v in per_step.items()})
+    out = dict(reference=ref, held_bytes=held, wall_seconds=wall,
+               ranks_seconds=summary["ranks_seconds"], meshes={})
+    for mesh_name, ranks in summary["meshes"].items():
+        rows = []
+        for r in ranks:
+            for check, c in r["checks"].items():
+                check_counts(f"mesh {mesh_name} rank {r['rank']} {check}", c["launches"],
+                             ref[check]["launches"])
+            half = r["full_parameter_bytes"] - r["sharded_parameter_bytes"] + \
+                r["sharded_parameter_bytes"] // r["mesh"]["tp"]
+            if r["local_parameter_bytes"] != half:
+                raise AssertionError(f"mesh {mesh_name} rank {r['rank']}: holds "
+                                     f"{r['local_parameter_bytes']} parameter bytes, the layout "
+                                     f"predicts {half}")
+            rows.append(r)
+            diffs = "; ".join(f"{check} " + ", ".join(
+                f"{k} {d['max_abs']:.2e}/{d['max_rel']:.2e}" for k, d in dd.items())
+                for check, dd in r["differences"].items())
+            log(f"  mesh {mesh_name} rank {r['rank']}: parameters {r['local_parameter_bytes'] / 2 ** 30:.3f}"
+                f" of {r['full_parameter_bytes'] / 2 ** 30:.3f} GiB; peaks "
+                f"{ {c: round(v['peak_bytes'] / 2 ** 30, 2) for c, v in r['checks'].items()} } GiB;"
+                f" seconds { {c: round(v['seconds'], 2) for c, v in r['checks'].items()} }; "
+                f"launches {r['checks'][next(iter(r['checks']))]['launches']}; max abs / rel "
+                f"differences from one process: {diffs}")
+        out["meshes"][mesh_name] = rows
+    log(f"  one process: seconds { {c: round(v['seconds'], 2) for c, v in ref.items()} }, peaks "
+        f"{ {c: round((v['peak_bytes'] - held) / 2 ** 30, 2) for c, v in ref.items()} } GiB "
+        f"(above the {held / 2 ** 30:.2f} GiB it held before); the ranks "
+        f"took {summary['ranks_seconds']:.1f} s (start, load and shard included); gloo moves "
+        "the collectives through host memory, so these times are the one-card check's, not tp's")
+
+    from osmosis_tpu_torch.models.convert import load_unet
+    from osmosis_tpu_torch.models.unet import UNetConfig
+    from osmosis_tpu_torch.utils import zstd
+
+    rec = np.load(ORBAX_FIXTURE + "_forward.npz")
+    kw = {k: tuple(v) if isinstance(v, list) else v
+          for k, v in json.loads(str(rec["config"])).items()}
+    t0 = time.perf_counter()
+    model = load_unet(ORBAX_FIXTURE, UNetConfig(**kw), "cuda")
+    read_s = time.perf_counter() - t0
+    with torch.no_grad():
+        got = model(torch.from_numpy(rec["x"]).cuda(), torch.from_numpy(rec["t"]).cuda())
+    err = check_close("orbax fixture forward on the card", got.cpu(), torch.from_numpy(rec["out"]),
+                      "orbax", "float32")
+    decoder = zstd.decoder()
+    if not decoder.startswith("native"):
+        raise AssertionError(f"the orbax fixture was read by the {decoder} zstd decoder")
+    log(f"  orbax fixture {os.path.relpath(ORBAX_FIXTURE, ROOT)} read by load_unet in {read_s:.2f} s"
+        f" (zstd decoder: {decoder}); its forward on the card against the recorded one: max abs "
+        f"{err:.2e} (rtol 1e-3, atol 5e-4)")
+    out["orbax"] = dict(read_seconds=read_s, max_abs_err=err, decoder=decoder)
+    return out
+
+
 def image_step_seconds(per_rank, steps):
     """Seconds per image-step of a run whose ranks (a list of progress rows
     each) start their image loops together, after the run dir's barrier: the
@@ -2295,12 +2407,12 @@ def main():
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
-    log(f"[1/20] device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
+    log(f"[1/21] device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
     built = _build.build_all()
-    log(f"[2/20] built CUDA kernels {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    log(f"[2/21] built CUDA kernels {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     from osmosis_tpu_torch.utils import native
 
     t0 = time.perf_counter()
@@ -2310,7 +2422,7 @@ def main():
     log(f"  built the native host ops {os.path.basename(lib)} in {time.perf_counter() - t0:.1f} s"
         f" (g++ {' '.join(native.CXX_FLAGS)}, zlib)")
 
-    log("[3/20] kernels against their plain versions at the main path's shapes")
+    log("[3/21] kernels against their plain versions at the main path's shapes")
     gn_sites, ups, pools = main_path_sites(UNetConfig())
     k_hybrid = int(load_yaml(os.path.join(ROOT, "configs", "osmosis_sample_hybrid_config.yaml"))[
         "conditioning"]["params"]["x_prev_every"])
@@ -2318,12 +2430,12 @@ def main():
     rows = check_resample_kernels(ups, pools, report, k_hybrid)
     rows += check_norm_kernels(gn_sites, report, k_hybrid)
 
-    log("[4/20] tiny UNet: card (kernels) against CPU (plain versions), TF32 off")
+    log("[4/21] tiny UNet: card (kernels) against CPU (plain versions), TF32 off")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     tiny = check_tiny_unet()
 
-    log(f"[5/20] main path at full width: preset, {STEPS} respaced steps, one image")
+    log(f"[5/21] main path at full width: preset, {STEPS} respaced steps, one image")
     build_dir = os.path.join(ROOT, "osmosis_tpu_torch", "_build")
     os.makedirs(build_dir, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build_dir) as workdir:
@@ -2340,32 +2452,32 @@ def main():
             "group_norm_backward": len(gn_sites) * STEPS})
         ckpt = main_path["checkpoint"]
 
-        log(f"[6/20] bf16 fast path at full width: the hybrid preset, ddim{STEPS}, one image")
+        log(f"[6/21] bf16 fast path at full width: the hybrid preset, ddim{STEPS}, one image")
         hybrid, model, hybrid_cfg = run_bf16_hybrid(workdir, ckpt, gn_sites, ups, pools)
-        log("[7/20] bf16 timing by step kind, busy share, UNet rate")
+        log("[7/21] bf16 timing by step kind, busy share, UNet rate")
         hybrid.update(time_bf16_steps(model, hybrid_cfg))
         del model
         log(f"  bf16 seconds per warm step: x_prev {hybrid['x_prev_seconds_per_step']:.4f}, x0 "
             f"{hybrid['x0_seconds_per_step']:.4f}; {smi}")
 
-        log(f"[8/20] RGBD prior sampler at full width: {STEPS} steps, one image, fp32")
+        log(f"[8/21] RGBD prior sampler at full width: {STEPS} steps, one image, fp32")
         prior = run_prior(workdir, ckpt, gn_sites, ups, pools, steps=STEPS)
         log(f"  seconds per prior step: {prior['seconds_per_step']:.4f}; {smi}")
 
-        log("[9/20] rgb_guidance at full width: 10 steps, one image, fp32")
+        log("[9/21] rgb_guidance at full width: 10 steps, one image, fp32")
         rgb = run_rgb_guidance(workdir, ckpt, gn_sites, ups, pools, steps=10)
 
-        log(f"[10/20] haze and simulation presets at full width: {STEPS} steps, one image each, "
+        log(f"[10/21] haze and simulation presets at full width: {STEPS} steps, one image each, "
             "fp32")
         presets = run_haze_and_simulation(workdir, ckpt, gn_sites, ups, pools)
 
-        log(f"[11/20] kernels at batch {FLEET} against their plain versions at the main path's "
+        log(f"[11/21] kernels at batch {FLEET} against their plain versions at the main path's "
             "shapes")
         gn4, ups4, pools4 = main_path_sites(UNetConfig(), batch=FLEET)
         rows += check_resample_kernels(ups4, pools4, report, k_hybrid, suffix="_b4")
         rows += check_norm_kernels(gn4, report, k_hybrid, batch=FLEET, suffix="_b4")
 
-        log(f"[12/20] the batch-{FLEET} fleet at full width: fp32 preset ({STEPS} steps) and bf16 "
+        log(f"[12/21] the batch-{FLEET} fleet at full width: fp32 preset ({STEPS} steps) and bf16 "
             f"hybrid preset (ddim{STEPS}), {FLEET} seeded images, clip_denoised")
         fleet = run_fleet(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
         ucfg = unet_config_from_yaml(load_yaml(os.path.join(
@@ -2379,43 +2491,43 @@ def main():
         del models
         log(f"  {smi}")
 
-        log(f"[13/20] segments and resume: bf16 hybrid preset, ddim{STEPS}, progress_segments 4, "
+        log(f"[13/21] segments and resume: bf16 hybrid preset, ddim{STEPS}, progress_segments 4, "
             "chain_checkpoint, a crash after the first boundary; then the fp32 preset, likewise")
         segments = run_segments_and_resume(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
 
-        log("[14/20] best_of 2 with phi_jitter, global_N 2 with global_eta_scale 0.5, async_save:"
+        log("[14/21] best_of 2 with phi_jitter, global_N 2 with global_eta_scale 0.5, async_save:"
             " bf16 hybrid preset, ddim10, one image")
         restarts = run_restarts(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
 
-        log(f"[15/20] training at full width: toy_unet_config(256, 256, 'production'), batch "
+        log(f"[15/21] training at full width: toy_unet_config(256, 256, 'production'), batch "
             f"{TRAIN_BATCH}, fp32, Adam and the EMA")
         training = run_training(main_path["n_params"], gn_sites, ups, pools)
         log(f"  seconds per train step {training['seconds_per_step']:.4f} (batch {TRAIN_BATCH}), "
             f"per image {training['seconds_per_image']:.4f}; peak {training['peak_bytes'] / 2 ** 30:.2f}"
             f" GiB; {smi}")
 
-        log("[16/20] the toy loop: train_toy_prior at 32x32, 300 steps at batch 128, then a "
+        log("[16/21] the toy loop: train_toy_prior at 32x32, 300 steps at batch 128, then a "
             "restore run from its EMA checkpoint; a tiny train step card vs CPU")
         toy = run_toy_loop(workdir)
         toy["card_vs_cpu"] = check_train_step_card_vs_cpu()
 
-        log(f"[17/20] the server at full width: the fast preset (bf16, x_prev every step), "
+        log(f"[17/21] the server at full width: the fast preset (bf16, x_prev every step), "
             f"ddim{STEPS}, three requests")
         served = run_serve(workdir, ckpt, gn_sites, ups, pools)
         log(f"  ms per request {served['ms_per_request']}, per step "
             f"{[round(m, 1) for m in served['ms_per_step']]}; {smi}")
 
-        log("[18/20] the quality tools at toy size: simulate_degraded, validate_toy_e2e, "
+        log("[18/21] the quality tools at toy size: simulate_degraded, validate_toy_e2e, "
             "demo_toy_restore, validate_checkpoint --tiny")
         quality = run_quality_tools(workdir, toy["checkpoint"])
 
-        log(f"[19/20] two ranks on one card through the CLI: the fp32 preset ({MH_STEPS} steps, 3 "
+        log(f"[19/21] two ranks on one card through the CLI: the fp32 preset ({MH_STEPS} steps, 3 "
             f"images) against one process, the prior, the fp32 and bf16 hybrid presets timed")
         t0 = time.perf_counter()
         multihost = run_multihost(workdir, ckpt, gn_sites, ups, pools, k_hybrid)
         log(f"  phase 19 took {time.perf_counter() - t0:.1f} s; {smi}")
 
-        log(f"[20/20] the day-one runbook at full width ({','.join(RUNBOOK_PRESETS)}; ddim"
+        log(f"[20/21] the day-one runbook at full width ({','.join(RUNBOOK_PRESETS)}; ddim"
             f"{RUNBOOK_STEPS}, one image), seed_replicate on phase 16's toy EMA, the native "
             "host ops")
         t0 = time.perf_counter()
@@ -2423,6 +2535,13 @@ def main():
         runbook["seed_replicate"] = run_seed_replicate(workdir, toy["checkpoint"])
         runbook["native"] = run_native_host_ops(workdir)
         log(f"  phase 20 took {time.perf_counter() - t0:.1f} s; {smi}")
+
+        log(f"[21/21] the (dp, tp) mesh on one card: two ranks over gloo, tp=2 (UNet forward and "
+            f"x-pullback, the {MESH_STEPS}-step chain) and dp=2 (the fleet at N={MESH_LANES}) "
+            "against one process at full width; the orbax fixture on the card")
+        t0 = time.perf_counter()
+        mesh = run_mesh(workdir, ckpt, gn_sites, ups, pools)
+        log(f"  phase 21 took {time.perf_counter() - t0:.1f} s; {smi}")
 
     meta = {
         "upsample_nearest_2x": ("cuda", "osmosis_tpu_torch/ops/csrc/upsample.cu",
@@ -2467,6 +2586,11 @@ def main():
                                 c[name] for c in multihost["preset"]["launches"]],
                             runbook_launches_per_preset={
                                 p: runbook["launches"][p][name] for p in RUNBOOK_PRESETS},
+                            mesh_launches_per_rank={
+                                f"{m}_{check}": [r["checks"][check]["launches"][name]
+                                                 for r in ranks]
+                                for m, ranks in mesh["meshes"].items()
+                                for check in ranks[0]["checks"]},
                             **train_row(name, training, report)))
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_report.json"), "w") as f:
@@ -2474,7 +2598,7 @@ def main():
                        main_path=main_path, bf16_hybrid=hybrid, prior=prior, rgb_guidance=rgb,
                        presets=presets, fleet=fleet, segments=segments, restarts=restarts,
                        training=training, toy=toy, serve=served, quality=quality,
-                       multihost=multihost, runbook=runbook,
+                       multihost=multihost, runbook=runbook, mesh=mesh,
                        seconds=time.perf_counter() - t_start), f, indent=1, default=str)
     log(f"  per-shape rows in results/chip_smoke_report.json; "
         f"total {time.perf_counter() - t_start:.1f} s")

@@ -11,6 +11,9 @@ exact inverse. :func:`save_params_msgpack` and :func:`load_params_msgpack` read
 and write the JAX package's ``.msgpack`` files through the port's own msgpack
 codec (``utils/msgpack.py``), so the two packages read each other's
 checkpoints, and :func:`unet_from_msgpack` builds a UNet from such a file.
+:func:`load_params_orbax` reads the JAX package's orbax checkpoint
+directories (OCDBT and zarr v2, ``utils/ocdbt.py``) without orbax or
+tensorstore.
 :func:`cast_params_half` is the counterpart of the JAX package's
 ``cast_params_half``: the bf16 torso's weights.
 """
@@ -18,13 +21,14 @@ checkpoints, and :func:`unet_from_msgpack` builds a UNet from such a file.
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from ..utils import msgpack
+from ..utils import msgpack, ocdbt, zstd
 from .nn import GroupNorm32
 from .unet import UNetConfig, UNetModel, build_plan
 
@@ -56,63 +60,114 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(_np(a), dtype=np.float32))
 
 
+# How a state_dict entry and its JAX leaf correspond: "vec" a 1-D leaf as it
+# is (biases, GroupNorm affines); "conv" OIHW <-> HWIO; "dense" a Linear's
+# [out, in] <-> [in, out]; "token" a 1x1 Conv1d's [out, in, 1] <-> [in, out];
+# "qkv" and "qkv_bias" the same with the legacy head-major qkv channels
+# permuted to JAX's part-major order.
+def _to_jax(a: np.ndarray, kind: str, perm) -> np.ndarray:
+    if kind == "vec":
+        return a
+    if kind == "qkv_bias":
+        return a[perm]
+    if kind == "conv":
+        return np.ascontiguousarray(np.transpose(a, (2, 3, 1, 0)))
+    if kind == "dense":
+        return np.ascontiguousarray(a.T)
+    if kind == "token":
+        return np.ascontiguousarray(a[:, :, 0].T)
+    return np.ascontiguousarray(a[:, :, 0][perm].T)  # qkv
+
+
+def _to_torch(a: np.ndarray, kind: str, perm) -> np.ndarray:
+    if kind == "vec":
+        return a
+    if kind == "qkv_bias":
+        out = np.empty_like(a)
+        out[perm] = a
+        return out
+    if kind == "conv":
+        return np.transpose(a, (3, 2, 0, 1))
+    if kind == "dense":
+        return a.T
+    if kind == "token":
+        return a.T[:, :, None]
+    out = np.empty((a.shape[1], a.shape[0]), a.dtype)  # qkv
+    out[perm] = a.T
+    return out[:, :, None]
+
+
+def jax_leaf_shape(kind: str, torch_shape) -> tuple:
+    """The JAX shape of a leaf whose state_dict entry has ``torch_shape``."""
+    s = tuple(torch_shape)
+    if kind in ("vec", "qkv_bias"):
+        return s
+    if kind == "conv":
+        return (s[2], s[3], s[1], s[0])
+    return (s[1], s[0])  # dense, token, qkv
+
+
+def leaf_map(cfg: UNetConfig) -> Dict[str, tuple]:
+    """``{state_dict name: (JAX path under "params", kind, qkv permutation
+    or None)}`` for every parameter of the UNet, in the JAX tree's order:
+    the one correspondence that :func:`state_dict_from_jax`,
+    :func:`params_from_state_dict` and the tensor-parallel layout
+    (``parallel/mesh``) read."""
+    legacy = not cfg.use_new_attention_order
+    out: Dict[str, tuple] = {}
+
+    def norm(prefix, path):
+        out[f"{prefix}.weight"] = (path + ("scale",), "vec", None)
+        out[f"{prefix}.bias"] = (path + ("bias",), "vec", None)
+
+    def kernel(prefix, path, kind, perm=None):
+        out[f"{prefix}.weight"] = (path + ("kernel",), kind, perm)
+        out[f"{prefix}.bias"] = (path + ("bias",), "qkv_bias" if kind == "qkv" else "vec", perm)
+
+    kernel("time_embed.0", ("time_dense0",), "dense")
+    kernel("time_embed.2", ("time_dense1",), "dense")
+    norm("out.0", ("out_norm",))
+    kernel("out.2", ("out_conv",), "conv")
+
+    def layer(lay: dict, prefix: str, name: str):
+        kind = lay["kind"]
+        if kind == "conv_in":
+            kernel(prefix, (name,), "conv")
+        elif kind in ("res", "res_down", "res_up"):
+            norm(f"{prefix}.in_layers.0", (name, "in_norm"))
+            kernel(f"{prefix}.in_layers.2", (name, "in_conv"), "conv")
+            kernel(f"{prefix}.emb_layers.1", (name, "emb_proj"), "dense")
+            norm(f"{prefix}.out_layers.0", (name, "out_norm"))
+            kernel(f"{prefix}.out_layers.3", (name, "out_conv"), "conv")
+            if lay["in_ch"] != lay["out_ch"]:
+                kernel(f"{prefix}.skip_connection", (name, "skip"), "conv")
+        elif kind == "attn":
+            norm(f"{prefix}.norm", (name, "norm"))
+            kernel(f"{prefix}.qkv", (name, "qkv"), "qkv",
+                   _qkv_permutation(lay["ch"], lay["heads"], legacy))
+            kernel(f"{prefix}.proj_out", (name, "proj"), "token")
+        elif kind == "down":
+            kernel(f"{prefix}.op", (name, "op"), "conv")
+        elif kind == "up":
+            kernel(f"{prefix}.conv", (name, "conv"), "conv")
+        else:
+            raise ValueError(kind)
+
+    _walk_plan(cfg, layer)
+    return out
+
+
 def state_dict_from_jax(params: Dict[str, Any], cfg: UNetConfig) -> Dict[str, torch.Tensor]:
     """JAX UNetModel params (nested dict of numpy arrays or tensors, with or
     without the top-level ``"params"`` key) -> this package's UNet state_dict,
     fp32 on the CPU."""
     p = params.get("params", params)
-    legacy = not cfg.use_new_attention_order
     sd: Dict[str, torch.Tensor] = {}
-
-    def norm(prefix, leaf):
-        sd[f"{prefix}.weight"] = _t(leaf["scale"])
-        sd[f"{prefix}.bias"] = _t(leaf["bias"])
-
-    def conv(prefix, leaf):  # HWIO -> OIHW
-        sd[f"{prefix}.weight"] = _t(np.transpose(_np(leaf["kernel"]), (3, 2, 0, 1)))
-        sd[f"{prefix}.bias"] = _t(leaf["bias"])
-
-    def dense(prefix, leaf):  # [in, out] -> [out, in]
-        sd[f"{prefix}.weight"] = _t(_np(leaf["kernel"]).T)
-        sd[f"{prefix}.bias"] = _t(leaf["bias"])
-
-    dense("time_embed.0", p["time_dense0"])
-    dense("time_embed.2", p["time_dense1"])
-
-    def layer(lay: dict, prefix: str, name: str):
-        kind, leaf = lay["kind"], p[name]
-        if kind == "conv_in":
-            conv(prefix, leaf)
-        elif kind in ("res", "res_down", "res_up"):
-            norm(f"{prefix}.in_layers.0", leaf["in_norm"])
-            conv(f"{prefix}.in_layers.2", leaf["in_conv"])
-            dense(f"{prefix}.emb_layers.1", leaf["emb_proj"])
-            norm(f"{prefix}.out_layers.0", leaf["out_norm"])
-            conv(f"{prefix}.out_layers.3", leaf["out_conv"])
-            if lay["in_ch"] != lay["out_ch"]:
-                conv(f"{prefix}.skip_connection", leaf["skip"])
-        elif kind == "attn":
-            ch = lay["ch"]
-            perm = _qkv_permutation(ch, lay["heads"], legacy)
-            w = np.empty((3 * ch, ch), np.float32)
-            b = np.empty((3 * ch,), np.float32)
-            w[perm] = _np(leaf["qkv"]["kernel"]).T
-            b[perm] = _np(leaf["qkv"]["bias"])
-            norm(f"{prefix}.norm", leaf["norm"])
-            sd[f"{prefix}.qkv.weight"] = _t(w[:, :, None])
-            sd[f"{prefix}.qkv.bias"] = _t(b)
-            sd[f"{prefix}.proj_out.weight"] = _t(_np(leaf["proj"]["kernel"]).T[:, :, None])
-            sd[f"{prefix}.proj_out.bias"] = _t(leaf["proj"]["bias"])
-        elif kind == "down":
-            conv(f"{prefix}.op", leaf["op"])
-        elif kind == "up":
-            conv(f"{prefix}.conv", leaf["conv"])
-        else:
-            raise ValueError(kind)
-
-    _walk_plan(cfg, layer)
-    norm("out.0", p["out_norm"])
-    conv("out.2", p["out_conv"])
+    for name, (path, kind, perm) in leaf_map(cfg).items():
+        leaf = p
+        for k in path:
+            leaf = leaf[k]
+        sd[name] = _t(_to_torch(_np(leaf), kind, perm))
     return sd
 
 
@@ -135,59 +190,12 @@ def params_from_state_dict(sd: Dict[str, Any], cfg: UNetConfig) -> Dict[str, Any
     of ``osmosis_tpu.models.convert.convert_state_dict`` (:99-137), conv
     kernels OIHW -> HWIO, linear weights transposed, the legacy qkv channels
     permuted to part-major. The exact inverse of :func:`state_dict_from_jax`."""
-    sd = {k: _np(v) for k, v in sd.items()}
-    legacy = not cfg.use_new_attention_order
-
-    def norm(prefix):
-        return {"scale": sd[f"{prefix}.weight"], "bias": sd[f"{prefix}.bias"]}
-
-    def conv(prefix):  # OIHW -> HWIO
-        return {"kernel": np.ascontiguousarray(np.transpose(sd[f"{prefix}.weight"], (2, 3, 1, 0))),
-                "bias": sd[f"{prefix}.bias"]}
-
-    def dense(prefix):  # [out, in] -> [in, out]
-        return {"kernel": np.ascontiguousarray(sd[f"{prefix}.weight"].T),
-                "bias": sd[f"{prefix}.bias"]}
-
-    params: Dict[str, Any] = {
-        "time_dense0": dense("time_embed.0"),
-        "time_dense1": dense("time_embed.2"),
-        "out_norm": norm("out.0"),
-        "out_conv": conv("out.2"),
-    }
-
-    def layer(lay: dict, prefix: str, name: str):
-        kind = lay["kind"]
-        if kind == "conv_in":
-            params[name] = conv(prefix)
-        elif kind in ("res", "res_down", "res_up"):
-            params[name] = {
-                "in_norm": norm(f"{prefix}.in_layers.0"),
-                "in_conv": conv(f"{prefix}.in_layers.2"),
-                "emb_proj": dense(f"{prefix}.emb_layers.1"),
-                "out_norm": norm(f"{prefix}.out_layers.0"),
-                "out_conv": conv(f"{prefix}.out_layers.3"),
-            }
-            if lay["in_ch"] != lay["out_ch"]:
-                params[name]["skip"] = conv(f"{prefix}.skip_connection")
-        elif kind == "attn":
-            perm = _qkv_permutation(lay["ch"], lay["heads"], legacy)
-            qkv_w = sd[f"{prefix}.qkv.weight"][:, :, 0]  # [3C, C]
-            params[name] = {
-                "norm": norm(f"{prefix}.norm"),
-                "qkv": {"kernel": np.ascontiguousarray(qkv_w[perm].T),
-                        "bias": sd[f"{prefix}.qkv.bias"][perm]},
-                "proj": {"kernel": np.ascontiguousarray(sd[f"{prefix}.proj_out.weight"][:, :, 0].T),
-                         "bias": sd[f"{prefix}.proj_out.bias"]},
-            }
-        elif kind == "down":
-            params[name] = {"op": conv(f"{prefix}.op")}
-        elif kind == "up":
-            params[name] = {"conv": conv(f"{prefix}.conv")}
-        else:
-            raise ValueError(kind)
-
-    _walk_plan(cfg, layer)
+    params: Dict[str, Any] = {}
+    for name, (path, kind, perm) in leaf_map(cfg).items():
+        node = params
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = _to_jax(_np(sd[name]), kind, perm)
     return {"params": params}
 
 
@@ -203,6 +211,33 @@ def load_params_msgpack(path: str) -> Dict[str, Any]:
     ``load_params_msgpack``): numpy arrays, bfloat16 leaves as tensors."""
     with open(path, "rb") as f:
         return msgpack.unpackb(f.read())
+
+
+def load_params_orbax(path: str) -> Dict[str, Any]:
+    """Read an orbax checkpoint directory (the JAX package's
+    ``save_params_orbax``): the parameter tree as ``_METADATA``'s
+    ``tree_metadata`` keys it, numpy arrays, bfloat16 leaves as bf16 tensors
+    (as :func:`load_params_msgpack` gives them). A damaged or truncated
+    directory raises ``utils.ocdbt.OcdbtError``; a missing one raises
+    ``FileNotFoundError``."""
+    with open(os.path.join(path, "_METADATA")) as f:
+        meta = json.load(f)
+    if not meta.get("use_ocdbt", False) or meta.get("use_zarr3", False):
+        raise ocdbt.OcdbtError(f"{path}: not an OCDBT checkpoint of zarr v2 arrays "
+                               f"(use_ocdbt {meta.get('use_ocdbt')}, use_zarr3 "
+                               f"{meta.get('use_zarr3')})")
+    db = ocdbt.Database(path)
+    tree: Dict[str, Any] = {}
+    for entry in meta["tree_metadata"].values():
+        keys = [k["key"] for k in entry["key_metadata"]]
+        if any(k["key_type"] != 2 for k in entry["key_metadata"]):
+            raise ocdbt.OcdbtError(f"{path}: {keys} is not a path of dict keys")
+        arr, bf16 = ocdbt.read_array(db, ".".join(keys))
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = torch.from_numpy(arr).view(torch.bfloat16) if bf16 else arr
+    return tree
 
 
 def is_orbax_checkpoint(path: Optional[str]) -> bool:
@@ -244,7 +279,12 @@ def unet_from_msgpack(path: str, cfg: UNetConfig, seed: int = 0) -> UNetModel:
     A missing or unreadable file raises; a tree that does not fit ``cfg``
     raises :class:`CheckpointMismatch`, as the JAX model would when it
     applies it."""
-    params = load_params_msgpack(path)
+    return unet_from_params(load_params_msgpack(path), cfg, path, seed)
+
+
+def unet_from_params(params: Dict[str, Any], cfg: UNetConfig, path: str,
+                     seed: int = 0) -> UNetModel:
+    """:func:`unet_from_msgpack` for a tree already read (from ``path``)."""
     model = init_unet(cfg, seed)
     try:
         model.load_state_dict(state_dict_from_jax(params, cfg))
@@ -261,8 +301,9 @@ def load_unet(model_path: Optional[str], cfg: UNetConfig, device, seed: int = 0,
 
     * ``.msgpack``: :func:`unet_from_msgpack`; a tree that does not fit
       ``cfg`` raises;
-    * an orbax directory raises ``NotImplementedError``: the JAX package reads
-      it with orbax, which the port does without;
+    * an orbax directory: :func:`load_params_orbax`, then as ``.msgpack``;
+      a missing, damaged or unreadable one raises (the JAX loader falls back
+      to random init), and the line printed names the zstd decoder;
     * any other existing path: a reference ``.pt`` state_dict.
 
     Any other failure (a missing or unreadable file) falls back to seeded
@@ -272,10 +313,18 @@ def load_unet(model_path: Optional[str], cfg: UNetConfig, device, seed: int = 0,
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
     if is_orbax_checkpoint(model_path):
-        raise NotImplementedError(
-            f"{model_path} is an orbax checkpoint: the port reads .msgpack and .pt only "
-            "(ROADMAP queue 1, orbax reading); save it as .msgpack with the JAX package's "
-            "save_params_msgpack")
+        print(f"Reading the orbax checkpoint {model_path} (zstd decoder: {zstd.decoder()})")
+        model = unet_from_params(load_params_orbax(model_path), cfg, model_path, seed)
+    else:
+        model = _load_file(model_path, cfg, seed)
+    if cfg.dtype != torch.float32:
+        cast_params_half(model, cfg.dtype)
+    model.requires_grad_(False).eval()
+    return model.to(device=device, memory_format=torch.channels_last)
+
+
+def _load_file(model_path: Optional[str], cfg: UNetConfig, seed: int) -> UNetModel:
+    """A ``.msgpack`` or ``.pt`` checkpoint, with the reference's fallback."""
     try:
         if model_path and model_path.endswith(".msgpack"):
             model = unet_from_msgpack(model_path, cfg, seed)
@@ -289,7 +338,4 @@ def load_unet(model_path: Optional[str], cfg: UNetConfig, device, seed: int = 0,
     except Exception as e:  # the reference's broad fallback, reported as it does
         print(f"Got exception: {e} / Randomly initialize")
         model = init_unet(cfg, seed)
-    if cfg.dtype != torch.float32:
-        cast_params_half(model, cfg.dtype)
-    model.requires_grad_(False).eval()
-    return model.to(device=device, memory_format=torch.channels_last)
+    return model

@@ -179,6 +179,22 @@ def _conv3x3(cin: int, cout: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, 3, padding=1)
 
 
+class TokenConv1d(nn.Conv1d):
+    """A 1x1 ``nn.Conv1d`` (the reference's module and its [out, in, 1]
+    weight) applied as a matrix product to a [B, T, C] token view."""
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        return F.linear(tokens, self.weight[:, :, 0], self.bias)
+
+
+class Float32Conv2d(nn.Conv2d):
+    """The output conv: computed in fp32 on the stored weights (bf16-rounded
+    in a bf16 model), as the JAX model does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x.float(), self.weight.float(), self.bias.float())
+
+
 class ResBlock(nn.Module):
     """ResBlock with FiLM scale-shift norm and in-block resampling
     (reference unet.py:222-335)."""
@@ -221,7 +237,7 @@ class AttentionBlock(nn.Module):
 
     q and k are each scaled by hc^-1/4 before the logits product, and the
     softmax runs in fp32. ``qkv`` and ``proj_out`` are 1x1 Conv1d modules as in
-    the reference; their weights are applied as a matrix product on the
+    the reference (:class:`TokenConv1d`), applied as a matrix product on the
     [B, T, C] token view.
     """
 
@@ -230,15 +246,15 @@ class AttentionBlock(nn.Module):
         self.num_heads = num_heads
         self.legacy = not use_new_attention_order
         self.norm = GroupNorm32(channels)
-        self.qkv = nn.Conv1d(channels, 3 * channels, 1)
-        self.proj_out = zero_module(nn.Conv1d(channels, channels, 1))
+        self.qkv = TokenConv1d(channels, 3 * channels, 1)
+        self.proj_out = zero_module(TokenConv1d(channels, channels, 1))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, hh, ww = x.shape
         t, heads = hh * ww, self.num_heads
         hc = c // heads
         tokens = self.norm(x).permute(0, 2, 3, 1).reshape(b, t, c)
-        qkv = F.linear(tokens, self.qkv.weight[:, :, 0], self.qkv.bias)
+        qkv = self.qkv(tokens)
         if self.legacy:  # head-major: channel = head*3*hc + part*hc + c
             q, k, v = qkv.view(b, t, heads, 3, hc).unbind(3)
         else:  # part-major: channel = part*C + head*hc + c
@@ -250,7 +266,7 @@ class AttentionBlock(nn.Module):
         logits = torch.einsum("bthc,bshc->bhts", (q * scale).float(), (k * scale).float())
         weights = torch.softmax(logits, dim=-1).to(v.dtype)
         a = torch.einsum("bhts,bshc->bthc", weights, v).reshape(b, t, c)
-        proj = F.linear(a, self.proj_out.weight[:, :, 0], self.proj_out.bias)
+        proj = self.proj_out(a)
         return x + proj.view(b, hh, ww, c).permute(0, 3, 1, 2)
 
 
@@ -317,9 +333,11 @@ class UNetModel(nn.Module):
         self.output_blocks = nn.ModuleList(
             nn.ModuleList(make(lay) for lay in block) for block in output_blocks
         )
-        ch = output_blocks[-1][-1]["out_ch"]
+        last = output_blocks[-1][-1]  # a res layer, or attention where it comes last
+        ch = last.get("out_ch", last.get("ch"))
         self.out = nn.Sequential(
-            GroupNorm32(ch), nn.SiLU(), zero_module(_conv3x3(ch, cfg.out_channels))
+            GroupNorm32(ch), nn.SiLU(),
+            zero_module(Float32Conv2d(ch, cfg.out_channels, 3, padding=1)),
         )
 
     def _run_layer(self, layer: nn.Module, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
@@ -347,7 +365,5 @@ class UNetModel(nn.Module):
             h = torch.cat([h, hs.pop()], dim=1)
             for layer in block:
                 h = self._run_layer(layer, h, emb)
-        h = self.out[0](h.float(), act="silu")
-        conv = self.out[2]  # fp32 on the stored (bf16-rounded in a bf16 model) weights
-        h = F.conv2d(h, conv.weight.float(), conv.bias.float(), padding=1)
+        h = self.out[2](self.out[0](h.float(), act="silu"))
         return h.permute(0, 2, 3, 1)

@@ -5,8 +5,12 @@ Every process runs the same program on its own card (or on a card it
 shares), images stride across processes by rank into one run dir, and each
 rank logs to its own files. Images are independent, so nothing of the hot
 loop crosses processes: only host scalars, gathered at the end, and
-barriers. That traffic runs over gloo, which also lets several ranks share
-one card (NCCL wants a card per rank).
+barriers. That traffic runs over gloo by default, which also lets several
+ranks share one card; ``initialize(backend="nccl")`` (or
+``"cpu:gloo,cuda:nccl"``) takes NCCL for CUDA tensors, one card a rank,
+for the mesh's collectives (``parallel/mesh``). Ranks that share a card ask
+for gloo themselves: NCCL refuses them, and :func:`initialize` raises before
+it would.
 
 Launch, the same command in every process, each with its id and its card:
 
@@ -31,6 +35,7 @@ from __future__ import annotations
 import atexit
 import datetime
 import os
+import socket
 import threading
 import time
 from typing import Optional
@@ -46,14 +51,23 @@ POLL_S = 0.05
 _STATE: dict = {}  # the store, the timeout and the barriers' generations
 
 
+BACKENDS = ("gloo", "nccl", "cpu:gloo,cuda:nccl")
+
+
 def initialize(coordinator_address: Optional[str] = None, num_processes: Optional[int] = None,
-               process_id: Optional[int] = None, timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
-    """Join the process group: gloo, its rendezvous at ``tcp://HOST:PORT``,
-    where rank 0 serves the store (under torchrun, its agent does).
-    Arguments left out are read from torchrun's MASTER_ADDR, MASTER_PORT,
-    WORLD_SIZE and RANK. ``timeout_s`` bounds every collective and how long a
-    silent peer is waited for. A second call with the same rank and size
-    keeps the group."""
+               process_id: Optional[int] = None, timeout_s: float = DEFAULT_TIMEOUT_S,
+               backend: str = "gloo") -> None:
+    """Join the process group: ``backend`` (gloo, or with NCCL for CUDA
+    tensors, one of :data:`BACKENDS`), its rendezvous at
+    ``tcp://HOST:PORT``, where rank 0 serves the store (under torchrun, its
+    agent does). Arguments left out are read from torchrun's MASTER_ADDR,
+    MASTER_PORT, WORLD_SIZE and RANK. ``timeout_s`` bounds every collective
+    and how long a silent peer is waited for. With NCCL each rank runs on
+    its current CUDA device (``torch.cuda.set_device`` first), and ranks that
+    share one raise. A second call with the same rank and size keeps the
+    group."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: one of {BACKENDS}")
     env = os.environ
     addr = coordinator_address
     if addr is None and env.get("MASTER_ADDR"):
@@ -72,17 +86,46 @@ def initialize(coordinator_address: Optional[str] = None, num_processes: Optiona
     timeout = datetime.timedelta(seconds=timeout_s)
     store, pid, n = next(dist.rendezvous(f"tcp://{addr}", rank=int(pid), world_size=int(n),
                                          timeout=timeout))
-    dist.init_process_group("gloo", store=store, world_size=n, rank=pid, timeout=timeout)
-    _STATE.update(store=store, timeout_s=float(timeout_s), gens={})
-    # one trivial collective at once, so gloo's pairs are connected while
-    # the ranks are still in step
-    dist.all_gather([torch.zeros(()) for _ in range(n)], torch.zeros(()))
+    here = f"{socket.gethostname()}/{_device_name(backend)}"
+    store.set(f"osmosis/device/{pid}", here)
+    devices = [store.get(f"osmosis/device/{r}").decode() for r in range(n)]
+    _check_devices(backend, devices)
+    dist.init_process_group(backend, store=store, world_size=n, rank=pid, timeout=timeout)
+    _STATE.update(store=store, timeout_s=float(timeout_s), gens={}, backend=backend,
+                  devices=devices)
+    # one trivial collective at once, so the backend's connections are made
+    # while the ranks are still in step
+    probe = torch.zeros((), device=f"cuda:{torch.cuda.current_device()}" if backend == "nccl"
+                        else "cpu")
+    dist.all_gather([torch.zeros_like(probe) for _ in range(n)], probe)
     stop = threading.Event()
     beat = threading.Thread(target=_heartbeat, args=(store, pid, stop), name="osmosis-heartbeat",
                             daemon=True)
     if n > 1:
         beat.start()
     atexit.register(_shutdown, stop, beat)
+
+
+def _device_name(backend: str) -> str:
+    """The card a rank's NCCL collectives use (gloo ranks: no claim)."""
+    return f"cuda:{torch.cuda.current_device()}" if "nccl" in backend else "gloo"
+
+
+def _check_devices(backend: str, devices) -> None:
+    if "nccl" not in backend:
+        return
+    seen = {}
+    for r, d in enumerate(devices):
+        if d in seen:
+            raise RuntimeError(f"NCCL needs one card a rank, but ranks {seen[d]} and {r} share "
+                               f"{d}; ranks that share a card join with backend='gloo'")
+        seen[d] = r
+
+
+def check_devices() -> None:
+    """Raise where the group's backend is NCCL and two ranks share a card."""
+    if _STATE:
+        _check_devices(_STATE["backend"], _STATE["devices"])
 
 
 def _shutdown(stop, beat):

@@ -6,8 +6,14 @@ images with ``lane_separable=True``: the loss is the sum of per-image
 losses, so each image ("lane") gets its batch-1 gradients, phi and optimizer
 state, while the UNet runs one batch of N. Results keep the port's layout:
 the sample, x0-hat and phi are [N, ...], the traces [T, N, ...];
-:func:`lane` takes one image's batch-1 result out of them. Multi-card dp is
-not part of the port yet.
+:func:`lane` takes one image's batch-1 result out of them.
+
+With ``mesh=`` (``parallel/mesh.make_mesh``) the N lanes shard over the
+mesh's dp axis: each dp rank runs its ``shard_batch`` slice of them through
+the same loop, and the result holds all N lanes, in lane order, on every
+rank (an all-gather over the dp group). Chain noise is drawn for all N lanes
+and sliced, so a lane sees the noise it sees unsharded. A tensor-parallel
+model (``mesh.shard_params``) runs under it as it is.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import dataclasses
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from ..diffusion.guided import (
     GuidanceConfig,
@@ -72,6 +79,27 @@ def lane(res: GuidedResult, j: int) -> GuidedResult:
     )
 
 
+_ROWS = ("sample", "pred_xstart", "phi", "opt_state", "eps_hist")  # lanes on axis 0
+_COLUMNS = ("sep_loss", "phi_trace", "aux_trace", "x0_std_trace", "x0_snapshots")  # axis 1
+
+
+def _gather_lanes(res: GuidedResult, mesh) -> GuidedResult:
+    """Every dp rank's lanes of a fleet result, concatenated in rank (and so
+    lane) order on every rank."""
+    group = mesh.group("dp")
+
+    def gather(axis):
+        def fn(t):
+            t = t.contiguous()
+            parts = [torch.empty_like(t) for _ in range(mesh.dp)]
+            dist.all_gather(parts, t, group=group)
+            return torch.cat(parts, dim=axis)
+        return fn
+
+    return dataclasses.replace(res, **{f: map_tensors(gather(0), getattr(res, f)) for f in _ROWS},
+                               **{f: map_tensors(gather(1), getattr(res, f)) for f in _COLUMNS})
+
+
 def make_batched_segment_runner(
     model_fn: ModelFn,
     schedule: DiffusionSchedule,
@@ -81,6 +109,7 @@ def make_batched_segment_runner(
     sample_pattern: Optional[dict] = None,
     record_every: Optional[int] = None,
     progress_every: Optional[int] = None,
+    mesh=None,
 ):
     """Returns ``run(xs, ys, seed=None, phi0s=None, opt0s=None,
     eta_scale=None, ts=None, buf0s=None, eps0s=None, noise_fn=None)``: the
@@ -93,15 +122,35 @@ def make_batched_segment_runner(
     timesteps, from each lane's incoming x_t, snapshot buffer ``buf0s`` and
     ltsp eps history ``eps0s`` (None on the first segment); chaining segments
     reproduces the whole chain bit for bit (``progress_segments``,
-    ``chain_checkpoint``). ``progress_every`` prints lane 0's loss and phi."""
+    ``chain_checkpoint``). ``progress_every`` prints lane 0's loss and phi.
+    ``mesh`` shards the lanes over dp (the module's docstring); every rank
+    passes all N lanes and gets all N back."""
 
     def run(xs, ys, seed=None, phi0s=None, opt0s=None, eta_scale=None,
             ts: Optional[Sequence[int]] = None, buf0s=None, eps0s=None, noise_fn=None):
         n = xs.shape[0]
-        cold_phi, cold_opt = _broadcast_cold_start(operator, n, xs.device)
         if noise_fn is None and seed is not None:
             # one draw broadcast to every lane: lane j sees image j's batch-1 noise
             noise_fn = keyed_noise_fn(seed, xs.device, xs.dtype, shared_lanes=True)
+        if mesh is not None and mesh.dp > 1:
+            from .mesh import shard_batch
+
+            xs, ys = shard_batch(xs, mesh), shard_batch(ys, mesh)
+            lo, hi = mesh.index("dp") * xs.shape[0], (mesh.index("dp") + 1) * xs.shape[0]
+            rows = lambda a: a[lo:hi]  # noqa: E731
+            phi0s, opt0s, eps0s = (None if v is None else map_tensors(rows, v)
+                                   for v in (phi0s, opt0s, eps0s))
+            buf0s = None if buf0s is None else buf0s[:, lo:hi]
+            if noise_fn is not None:  # drawn for all n lanes: a lane's noise is its own
+                whole = noise_fn
+                noise_fn = lambda t, shape, *i: whole(  # noqa: E731
+                    t, (n,) + tuple(shape[1:]), *i)[lo:hi]
+            return _gather_lanes(_loop(xs, ys, phi0s, opt0s, eta_scale, ts, buf0s, eps0s,
+                                       noise_fn), mesh)
+        return _loop(xs, ys, phi0s, opt0s, eta_scale, ts, buf0s, eps0s, noise_fn)
+
+    def _loop(xs, ys, phi0s, opt0s, eta_scale, ts, buf0s, eps0s, noise_fn):
+        cold_phi, cold_opt = _broadcast_cold_start(operator, xs.shape[0], xs.device)
         return guided_sample_loop(
             model_fn, schedule, xs, ys, operator, gcfg, scfg,
             sample_pattern=sample_pattern, record_every=record_every,
@@ -124,12 +173,13 @@ def make_batched_guided_runner(
     scfg: SamplerConfig = SamplerConfig(),
     sample_pattern: Optional[dict] = None,
     record_every: Optional[int] = None,
+    mesh=None,
 ):
     """The whole chain for N images: :func:`make_batched_segment_runner`'s
     ``run`` without a segment, ``run(xs, ys, seed=None, phi0s=None,
-    opt0s=None, eta_scale=None, noise_fn=None)``."""
+    opt0s=None, eta_scale=None, noise_fn=None)``; ``mesh`` as there."""
     seg = make_batched_segment_runner(model_fn, schedule, operator, gcfg, scfg,
-                                      sample_pattern, record_every)
+                                      sample_pattern, record_every, mesh=mesh)
 
     def run(xs, ys, seed=None, phi0s=None, opt0s=None, eta_scale=None, noise_fn=None):
         return seg(xs, ys, seed, phi0s, opt0s, eta_scale, noise_fn=noise_fn)

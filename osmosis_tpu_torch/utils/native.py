@@ -104,6 +104,10 @@ def _bind(path: str) -> ctypes.CDLL:
     lib.apply_colormap_lut.restype = None
     lib.png_write_rgb8.argtypes = [ctypes.c_char_p, u8p, ctypes.c_int, ctypes.c_int]
     lib.png_write_rgb8.restype = ctypes.c_int
+    lib.zstd_decompress.argtypes = [ctypes.c_char_p, ctypes.c_size_t, u8p, ctypes.c_size_t]
+    lib.zstd_decompress.restype = ctypes.c_longlong
+    lib.zstd_last_error.argtypes = []
+    lib.zstd_last_error.restype = ctypes.c_char_p
     return lib
 
 
@@ -193,3 +197,34 @@ def png_write_rgb8(path: str, rgb: np.ndarray) -> bool:
     if rgb.ndim != 3 or rgb.shape[2] != 3:
         raise ValueError(f"expected [H, W, 3] uint8, got {rgb.shape}")
     return lib.png_write_rgb8(os.fsencode(path), rgb, rgb.shape[0], rgb.shape[1]) == 0
+
+
+def zstd_decompress(data: bytes, size: Optional[int] = None) -> Optional[bytes]:
+    """Every zstd frame of ``data`` decompressed (``utils/zstd.py``'s
+    contract) into a buffer of ``size`` bytes, or of the first frame's
+    declared size, growing where neither says; None where not native.
+    Raises ``utils.zstd.ZstdError`` on a corrupt frame."""
+    lib = _load()
+    if lib is None:
+        return None
+    from .zstd import ZstdError, frame_content_size
+
+    data = bytes(data)
+    cap = size
+    if cap is None:
+        try:
+            cap = frame_content_size(data)
+        except ZstdError:
+            cap = None
+        if cap is None:
+            cap = 4 * len(data) + (1 << 16)
+    while True:
+        out = np.empty(max(cap, 1), dtype=np.uint8)
+        n = lib.zstd_decompress(data, len(data), out, out.size)
+        if n >= 0:
+            return out[:n].tobytes()
+        if n == -1:
+            raise ZstdError(lib.zstd_last_error().decode())
+        if size is not None:
+            raise ZstdError(f"the frames hold more than the {size} bytes expected")
+        cap *= 2

@@ -4,9 +4,10 @@
   exactly, and its round trip with ``state_dict_from_jax``;
 * ``load_unet`` on a ``.msgpack`` that the JAX package wrote: the port's
   forward against JAX's at the UNet parity bar, rtol 1e-3 / atol 5e-4;
-* an orbax directory raises; a missing or unreadable file falls back to
-  random init with the reference's message; a tree that does not fit the
-  config raises;
+* an orbax directory that the JAX package wrote loads the weights of its
+  ``.msgpack``; a missing or damaged orbax directory raises; a missing or
+  unreadable file falls back to random init with the reference's message; a
+  tree that does not fit the config raises;
 * the restore CLI with ``--cpu`` and ``model_path: *.msgpack`` loads it;
 * ``remat`` (``use_checkpoint``) gives the same outputs, x-gradients and
   weight gradients, bit for bit, with the K3 forward run again in the backward.
@@ -135,13 +136,24 @@ def test_load_unet_reads_pt_as_before(tmp_path):
 
 
 def test_orbax_checkpoints_raise(tmp_path):
+    """A real orbax directory loads; a missing or damaged one raises (no
+    random-init fallback)."""
     cfg = UNetConfig(**TINY_KW)
+    sd = _random_state_dict(cfg, 7)
+    saved = str(tmp_path / "real.orbax")
+    JC.save_params_orbax(C.params_from_state_dict(sd, cfg), saved)
+    model = C.load_unet(saved, cfg, "cpu")
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, sd[k]), k
     d = tmp_path / "ckpt"
     d.mkdir()
     (d / "_CHECKPOINT_METADATA").write_text("{}")
     for path in (str(d), str(tmp_path / "missing.orbax")):
-        with pytest.raises(NotImplementedError, match="orbax"):
+        with pytest.raises(FileNotFoundError):
             C.load_unet(path, cfg, "cpu")
+    os.remove(os.path.join(saved, "manifest.ocdbt"))
+    with pytest.raises(FileNotFoundError):
+        C.load_unet(saved, cfg, "cpu")
     assert C.is_orbax_checkpoint(str(d)) and not C.is_orbax_checkpoint(str(tmp_path))
 
 

@@ -2,8 +2,9 @@
 loads neither JAX, Flax, ml_dtypes nor the JAX package, and no source of the
 port or ``chip_smoke.py`` imports them, or Triton: the kernels are CUDA C++.
 Nor do they import the repo's ``tools/`` scripts (which import JAX), or the
-``msgpack``, ``optax`` and ``orbax`` packages, which the card's machine lacks:
-the port reads and writes checkpoints with its own codec."""
+``msgpack``, ``optax``, ``orbax``, ``tensorstore`` and ``zstandard`` packages,
+which the card's machine lacks: the port reads and writes checkpoints with its
+own codecs (msgpack, and OCDBT, zarr and zstd for orbax directories)."""
 
 import os
 import pkgutil
@@ -31,7 +32,7 @@ def test_every_module_imports_without_jax_or_the_jax_package():
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ml_dtypes', 'osmosis_tpu', 'tools', 'msgpack', 'optax', 'orbax'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'ml_dtypes', 'osmosis_tpu', 'tools', 'msgpack', 'optax', 'orbax', 'tensorstore', 'zstandard'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -68,7 +69,7 @@ def test_no_source_imports_triton():
 
 
 def test_no_source_imports_the_tools_scripts_or_checkpoint_packages():
-    offenders = _importers(["tools", "msgpack", "optax", "orbax"])
+    offenders = _importers(["tools", "msgpack", "optax", "orbax", "tensorstore", "zstandard"])
     assert not offenders, offenders
 
 
@@ -88,20 +89,33 @@ STANDALONE = {
         "assert m.SRC.startswith(pkg + os.sep) and m.lib_path().startswith(pkg + os.sep)",
     "osmosis_tpu_torch.utils.profiling": "m.enable_nan_debugging()",
     "osmosis_tpu_torch.perf": "assert m.configure_from_dict(None).values",
+    "osmosis_tpu_torch.parallel.mesh": "assert m.make_mesh().shape == {'dp': 1, 'tp': 1}",
+    "osmosis_tpu_torch.parallel.tp": "assert callable(m.parallelize)",
+    "osmosis_tpu_torch.tools.mesh_check": "assert callable(m.launch)",
+    "osmosis_tpu_torch.utils.zstd":
+        "assert m.decompress_py(bytes.fromhex('28b52ffd2003190000') + b'abc') == b'abc'",
+    "osmosis_tpu_torch.utils.ocdbt": "assert m.crc32c(b'123456789') == 0xE3069283",
+    "osmosis_tpu_torch.models.convert":
+        "import os\n"
+        "t = m.load_params_orbax(os.path.join('tests', 'data', 'orbax_tiny_unet'))\n"
+        "assert 'out_conv' in t['params']",
 }
 
 
 @pytest.mark.parametrize("module", sorted(STANDALONE))
 def test_the_runbook_and_host_modules_stand_alone(module):
     """The runbook, seed_replicate, the determinism tool, the native host ops
-    (built from the port's own source into the port's build dir), profiling
-    and perf: each imported and used alone loads nothing of JAX, the JAX
-    package or the repo's tools, and the tools drive only the port's tools."""
+    (built from the port's own source into the port's build dir), profiling,
+    perf, the mesh and its tensor-parallel layers, the mesh check, the zstd
+    decoder, the OCDBT reader and the orbax path of ``models/convert``: each
+    imported and used alone loads nothing of JAX, the JAX package, the repo's
+    tools, tensorstore or zstandard, and the tools drive only the port's
+    tools."""
     code = (
         "import importlib, sys\n"
         f"m = importlib.import_module({module!r})\n"
         f"{STANDALONE[module]}\n"
-        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'ml_dtypes', 'osmosis_tpu', 'tools', 'msgpack', 'optax', 'orbax'))\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'ml_dtypes', 'osmosis_tpu', 'tools', 'msgpack', 'optax', 'orbax', 'tensorstore', 'zstandard'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
