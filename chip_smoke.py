@@ -107,14 +107,20 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
      ``tools.mesh_check``: two ranks share cuda:0 over gloo, fp32, TF32 off,
      cuDNN deterministic, the preset's 552.8M UNet at 256² from the seeded
      checkpoint: tp=2 (the UNet forward and x-pullback, the 2-step guided
-     chain at batch 1 with clip_denoised) and dp=2 (the fleet runner at N=2
-     with ``mesh=``), every output within rtol/atol 5e-4 (the loss trace
-     1e-3) of one process; each rank's K1-K4 launches those of one process;
-     under tp=2 each rank holds the replicated parameter bytes and half the
-     sharded ones; each rank's peak and seconds. Then the committed orbax
-     fixture (``tests/data/orbax_tiny_unet``) read by ``load_unet`` onto the
-     card with the native zstd decoder, its forward against the recorded one
-     at the UNet parity bar (rtol 1e-3, atol 5e-4).
+     chain at batch 1 with clip_denoised) and dp=2 (the joint-loss chain at
+     batch 2 through ``guided_sample_loop(mesh=)``, its loss reduced over
+     the dp group, and the fleet runner at N=2 with ``mesh=``), every output
+     within rtol/atol 5e-4 (the loss trace 1e-3) of one process (under dp
+     its UNet called on each rank's images, the difference from the whole
+     batch in one call reported); each rank's K1-K4 launches those of one
+     process; under tp=2 each rank holds the replicated parameter bytes and
+     half the sharded ones; each rank's peak and seconds. Then the committed
+     orbax fixture (``tests/data/orbax_tiny_unet``) read by ``load_unet``
+     onto the card with the native zstd decoder, its forward against the
+     recorded one at the UNet parity bar (rtol 1e-3, atol 5e-4); and the
+     seeded 552.8M tree written by ``save_params_orbax`` and read back by
+     ``load_unet`` onto the card, its forward bit for bit the in-memory
+     model's (write and read seconds: host numbers).
 The line before the last gives the card's name and power limit, the one
 before it the kernels' JSON summary (each kernel's fp32 numbers on the main
 path, its bf16 per-step numbers on the hybrid path, at batch 4, per train
@@ -2266,14 +2272,17 @@ def run_mesh(workdir, checkpoint, gn_sites, ups, pools):
     """Two ranks share cuda:0 over gloo (``tools.mesh_check``), fp32, TF32
     off, cuDNN deterministic, the preset's 552.8M UNet at 256² from the
     seeded checkpoint: tp=2 (mesh 1x2: the UNet forward and x-pullback, the
-    2-step guided chain at batch 1) and dp=2 (mesh 2x1: the fleet runner at
-    N=2 with ``mesh=``), each rank against the one-process run of the same
-    check in this process at rtol/atol 5e-4 (1e-3 on the loss trace); each
-    rank's K1-K4 launches equal the one process's (tp: every rank runs every
-    site; dp: the launches of its own lanes, the same count at any batch);
-    under tp=2 a rank holds the replicated bytes and half the sharded ones.
-    Then the committed orbax fixture read by ``load_unet`` onto the card, its
-    forward against the recorded one at the UNet parity bar."""
+    2-step guided chain at batch 1) and dp=2 (mesh 2x1: the joint-loss chain
+    at batch 2, its loss reduced over dp, and the fleet runner at N=2, both
+    with ``mesh=``), each rank against the one-process run of the same
+    check in this process at rtol/atol 5e-4 (1e-3 on the loss trace; under
+    dp the one process calls its UNet on each rank's images); each rank's
+    K1-K4 launches equal the one process's (tp: every rank runs every site;
+    dp: the launches of its own images, the same count at any batch); under
+    tp=2 a rank holds the replicated bytes and half the sharded ones. Then
+    the committed orbax fixture read by ``load_unet`` onto the card, its
+    forward against the recorded one at the UNet parity bar; then the
+    seeded tree through ``save_params_orbax`` (:func:`orbax_full_width`)."""
     import numpy as np
     import torch
 
@@ -2291,7 +2300,7 @@ def run_mesh(workdir, checkpoint, gn_sites, ups, pools):
     wall = time.perf_counter() - t0
     per_step = {"upsample_nearest_2x": len(ups) + len(pools), "box_sum_2x": len(ups) + len(pools),
                 "group_norm_forward": len(gn_sites), "group_norm_backward": len(gn_sites)}
-    steps = {"unet": 1, "chain": MESH_STEPS, "fleet": MESH_STEPS}
+    steps = {"unet": 1, "chain": MESH_STEPS, "joint": MESH_STEPS, "fleet": MESH_STEPS}
     ref = summary["reference"]
     for check, n in steps.items():
         check_counts(f"mesh reference {check}", ref[check]["launches"],
@@ -2314,12 +2323,17 @@ def run_mesh(workdir, checkpoint, gn_sites, ups, pools):
             diffs = "; ".join(f"{check} " + ", ".join(
                 f"{k} {d['max_abs']:.2e}/{d['max_rel']:.2e}" for k, d in dd.items())
                 for check, dd in r["differences"].items())
+            whole = "; ".join(f"{check} " + ", ".join(
+                f"{k} {d['max_abs']:.2e}" for k, d in r[f"whole_batch_{check}_differences"].items())
+                for check in r["differences"] if f"whole_batch_{check}_differences" in r)
             log(f"  mesh {mesh_name} rank {r['rank']}: parameters {r['local_parameter_bytes'] / 2 ** 30:.3f}"
                 f" of {r['full_parameter_bytes'] / 2 ** 30:.3f} GiB; peaks "
                 f"{ {c: round(v['peak_bytes'] / 2 ** 30, 2) for c, v in r['checks'].items()} } GiB;"
                 f" seconds { {c: round(v['seconds'], 2) for c, v in r['checks'].items()} }; "
                 f"launches {r['checks'][next(iter(r['checks']))]['launches']}; max abs / rel "
-                f"differences from one process: {diffs}")
+                f"differences from one process: {diffs}"
+                + (f"; max abs from the whole batch in one call (reported): {whole}" if whole
+                   else ""))
         out["meshes"][mesh_name] = rows
     log(f"  one process: seconds { {c: round(v['seconds'], 2) for c, v in ref.items()} }, peaks "
         f"{ {c: round((v['peak_bytes'] - held) / 2 ** 30, 2) for c, v in ref.items()} } GiB "
@@ -2348,7 +2362,54 @@ def run_mesh(workdir, checkpoint, gn_sites, ups, pools):
         f" (zstd decoder: {decoder}); its forward on the card against the recorded one: max abs "
         f"{err:.2e} (rtol 1e-3, atol 5e-4)")
     out["orbax"] = dict(read_seconds=read_s, max_abs_err=err, decoder=decoder)
+    del model
+    out["orbax_full_width"] = orbax_full_width(workdir, checkpoint)
     return out
+
+
+def orbax_full_width(workdir, checkpoint):
+    """The seeded 552.8M tree (the checkpoint of phase 5) written by
+    ``save_params_orbax`` and read back by ``load_unet`` onto the card: its
+    forward on a seeded input bit for bit the one of the model loaded from
+    the checkpoint itself. Write and read seconds are host numbers."""
+    import shutil
+
+    import torch
+
+    from osmosis_tpu_torch.config import load_yaml
+    from osmosis_tpu_torch.models.convert import (
+        load_unet, params_from_state_dict, save_params_orbax,
+    )
+    from osmosis_tpu_torch.models.unet import unet_config_from_yaml
+
+    cfg = unet_config_from_yaml(load_yaml(os.path.join(
+        ROOT, "configs", "osmosis_sample_config.yaml"))["unet_model"])
+    params = params_from_state_dict(torch.load(checkpoint, map_location="cpu",
+                                               weights_only=True), cfg)
+    path = os.path.join(workdir, "seeded.orbax")
+    t0 = time.perf_counter()
+    save_params_orbax(params, path)
+    write_s = time.perf_counter() - t0
+    del params
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+    t0 = time.perf_counter()
+    back = load_unet(path, cfg, "cuda")
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    model = load_unet(checkpoint, cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((1, 256, 256, 4), generator=gen, device="cuda")
+    t = torch.tensor([500.0], device="cuda")
+    with torch.no_grad():
+        a, b = model(x, t), back(x, t)
+    if not torch.equal(a, b):
+        raise AssertionError(f"the seeded tree through orbax: forward off by "
+                             f"{float((a - b).abs().max()):.3e}")
+    shutil.rmtree(path)
+    log(f"  the seeded 552.8M tree written by save_params_orbax ({size / 1e9:.3f} GB) in "
+        f"{write_s:.2f} s and read back by load_unet onto the card in {read_s:.2f} s (host "
+        f"seconds); its forward equals the in-memory model's bit for bit")
+    return dict(write_seconds=write_s, read_seconds=read_s, bytes=size)
 
 
 def image_step_seconds(per_rank, steps):
@@ -2379,6 +2440,28 @@ def train_row(name, training, report):
                    train_param_sums_bound_ms=t["bound_ms"],
                    train_param_sums_library_ms=t["library_ms"])
     return row
+
+
+def check_native_crc32c():
+    """The native CRC-32C against its Python twin (and the CRC's check
+    value), on buffers of every length class."""
+    import numpy as np
+
+    from osmosis_tpu_torch.utils import native, ocdbt
+
+    if native.crc32c(b"123456789") != 0xE3069283:
+        raise AssertionError("native CRC-32C: wrong check value")
+    rng = np.random.default_rng(0)
+    for n in (0, 1, 7, 8, 9, 4096, 131071, 131072, 131073, 1 << 20):
+        data = rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+        if native.crc32c(data) != ocdbt.crc32c_py(data):
+            raise AssertionError(f"native CRC-32C differs from the Python twin at {n} bytes")
+    big = rng.integers(0, 256, 1 << 28, dtype=np.uint8)
+    t0 = time.perf_counter()
+    native.crc32c(big)
+    crc_s = time.perf_counter() - t0
+    log(f"  native CRC-32C equals its Python twin; CRC-32C of 256 MiB in {crc_s:.3f} s "
+        f"({(1 << 28) / crc_s / 1e9:.2f} GB/s, host CPU)")
 
 
 def main():
@@ -2421,6 +2504,7 @@ def main():
         raise AssertionError(f"the native host ops built but are not in use: {native.status()}")
     log(f"  built the native host ops {os.path.basename(lib)} in {time.perf_counter() - t0:.1f} s"
         f" (g++ {' '.join(native.CXX_FLAGS)}, zlib)")
+    check_native_crc32c()
 
     log("[3/21] kernels against their plain versions at the main path's shapes")
     gn_sites, ups, pools = main_path_sites(UNetConfig())
@@ -2537,8 +2621,9 @@ def main():
         log(f"  phase 20 took {time.perf_counter() - t0:.1f} s; {smi}")
 
         log(f"[21/21] the (dp, tp) mesh on one card: two ranks over gloo, tp=2 (UNet forward and "
-            f"x-pullback, the {MESH_STEPS}-step chain) and dp=2 (the fleet at N={MESH_LANES}) "
-            "against one process at full width; the orbax fixture on the card")
+            f"x-pullback, the {MESH_STEPS}-step chain) and dp=2 (the joint-loss chain at batch "
+            f"{MESH_LANES}, the fleet at N={MESH_LANES}) against one process at full width; the "
+            "orbax fixture on the card; the seeded tree written and read as orbax")
         t0 = time.perf_counter()
         mesh = run_mesh(workdir, ckpt, gn_sites, ups, pools)
         log(f"  phase 21 took {time.perf_counter() - t0:.1f} s; {smi}")

@@ -38,6 +38,17 @@ At batch B > 1 the guidance loss couples the images (one norm over the
 batch, as the JAX loop computes it); ``lane_separable=True`` sums per-image
 losses instead, so each image gets the gradients it has at batch 1: the
 fleet (``osmosis_tpu_torch.parallel.runner``) runs that way.
+
+With ``mesh=`` (``parallel/mesh.make_mesh``) the batch shards over the
+mesh's dp axis, as GSPMD shards the JAX loop's: each dp rank runs its
+``shard_batch`` slice of the images (and of phi, the optimizer state and the
+carried buffers), draws chain noise for the whole batch and keeps its
+slice, and reduces every batch-wide term of the joint loss over the dp
+group (``dp_sum`` / ``dp_mean``: the norm's sum of squares, the mse and aux
+sums, the means over the global element count). The per-image results are
+all-gathered in image order at the end, so every rank returns what one
+process returns for the whole batch, up to the order of the reductions' sums.
+A tensor-parallel model (``mesh.shard_params``) runs under it as it is.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ from ..guidance.losses import make_aux_loss_fn
 from ..guidance.operators import Operator, convert_depth
 from ..guidance.phi_optim import make_phi_optimizer
 from ..guidance.schedule_masks import pattern_masks
+from ..parallel.mesh import dp_mean, dp_sum, gather_batch, shard_batch
 from ..registry import CONDITIONERS
 from .sampler import (
     ModelFn,
@@ -77,6 +89,18 @@ from .schedules import DiffusionSchedule
 NoiseFn = Callable[..., torch.Tensor]
 
 _U64 = (1 << 64) - 1
+
+
+def map_tensors(fn, tree):
+    """``fn`` on every tensor of a tree of dicts, tuples and lists; other
+    leaves (the Adam step count) pass through."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_tensors(fn, v) for v in tree)
+    return tree
 
 
 def draw_seed(seed: int, *path: int) -> int:
@@ -242,6 +266,7 @@ def guided_sample_loop(
     x0_buf_init: Optional[torch.Tensor] = None,
     lane_separable: bool = False,
     progress_every: Optional[int] = None,
+    mesh=None,
 ) -> GuidedResult:
     """Run the guided reverse process (or a segment of it). Tensors NHWC.
 
@@ -263,11 +288,18 @@ def guided_sample_loop(
     ``x_prev_every``. ``lane_separable`` makes the loss the sum of per-image
     losses (aux terms included; aux traces then [T, B]). ``progress_every``
     prints the loss and phi of the first image at every timestep divisible
-    by it (a host sync each time).
+    by it (a host sync each time). ``mesh`` shards the batch over its dp
+    axis (the module's docstring): every rank passes the whole batch and
+    its whole-batch arguments, and gets the whole result back.
     """
     T = schedule.num_timesteps
-    B = x_init.shape[0]
     device = x_init.device
+    n = x_init.shape[0]
+    sharded = mesh is not None and mesh.dp > 1
+    if sharded:
+        x_init, measurement = shard_batch(x_init, mesh), shard_batch(measurement, mesh)
+    B = x_init.shape[0]
+    rows = lambda a, dim=0: a.narrow(dim, mesh.index("dp") * B, B)  # noqa: E731
     masks = pattern_masks(sample_pattern, T)
     always_guided = bool(masks["guidance"].all())
     never_alternates = bool((masks["alternate_len"] == 1).all())
@@ -278,6 +310,9 @@ def guided_sample_loop(
         if seed is None:
             raise ValueError("a stochastic chain needs a seed or a noise_fn")
         noise_fn = keyed_noise_fn(seed, device, x_init.dtype)
+    if sharded and noise_fn is not None:  # drawn for the whole batch: an image's noise is its own
+        whole = noise_fn
+        noise_fn = lambda t, shape, *i: rows(whole(t, (n,) + tuple(shape[1:]), *i))  # noqa: E731
 
     def draw(t, shape, i):
         return noise_fn(t, shape) if i == 0 else noise_fn(t, shape, i)
@@ -293,6 +328,10 @@ def guided_sample_loop(
 
     src = phi_init if phi_init is not None else operator.phi_init()
     phi = {k: torch.as_tensor(v, dtype=torch.float32, device=device) for k, v in src.items()}
+    if sharded:
+        phi, opt_state_init, eps_hist_init = (
+            None if v is None else map_tensors(rows, v) for v in (phi, opt_state_init, eps_hist_init))
+        x0_buf_init = None if x0_buf_init is None else rows(torch.as_tensor(x0_buf_init), 1)
     opt = make_phi_optimizer(operator.optimizer, operator.etas())
     opt_state = opt_state_init if opt_state_init is not None else opt.init(phi)
     if eta_scale is not None:
@@ -307,19 +346,21 @@ def guided_sample_loop(
 
         opt = dataclasses.replace(opt, update=scaled_update)
     y = measurement
+    # the batch-wide reductions of the joint loss span every dp rank's images
+    red = (lambda t: t) if lane_separable else (lambda t: dp_sum(t, mesh))  # noqa: E731
 
     def loss_terms(x0, phi_):
         degraded = 2.0 * operator.forward(phi_, x0) - 1.0
         diff = ((y - degraded) * weight_fn(x0)).float()
         if gcfg.loss_function == "norm":
             sep = torch.sqrt(torch.sum(diff ** 2, dim=(1, 2, 3)))
-            loss = torch.sum(sep) if lane_separable else torch.sqrt(torch.sum(diff ** 2))
+            loss = torch.sum(sep) if lane_separable else torch.sqrt(red(torch.sum(diff ** 2)))
         else:
             sep = torch.mean(diff ** 2, dim=(1, 2, 3))
-            loss = torch.sum(sep)
+            loss = red(torch.sum(sep))
         aux = {}
         if aux_fn is not None:
-            aux_total, aux = aux_fn(x0, per_lane=lane_separable)
+            aux_total, aux = aux_fn(x0, per_lane=lane_separable, mesh=mesh)
             loss = loss + aux_total
         return loss, sep, aux
 
@@ -345,14 +386,16 @@ def guided_sample_loop(
             if gcfg.noiser_name == "gaussian":  # ‖y − A(x0[..., :3])‖
                 diff = (y - operator.forward({}, x0_leaf[..., 0:3])).float()
                 loss = (torch.sqrt(torch.sum(diff ** 2, dim=dims)) if lane_separable
-                        else torch.sqrt(torch.sum(diff ** 2)))
+                        else torch.sqrt(red(torch.sum(diff ** 2))))
             else:  # poisson: over the FULL x0, no RGB slice (condition_methods.py:43-48)
                 diff = (y - operator.forward({}, x0_leaf)).float()
                 if lane_separable:
                     norm = torch.sqrt(torch.sum(diff ** 2, dim=dims)).reshape(-1, 1, 1, 1)
                     loss = torch.mean(norm / torch.abs(y.float()), dim=dims)
-                else:
-                    loss = torch.mean(torch.sqrt(torch.sum(diff ** 2)) / torch.abs(y.float()))
+                else:  # mean(norm / |y|) as norm * mean(1 / |y|): every rank then uses
+                    # the reduced norm alike, which dp_sum's identity backward needs
+                    norm = torch.sqrt(red(torch.sum(diff ** 2)))
+                    loss = norm * dp_mean(1.0 / torch.abs(y.float()), mesh)
             (g_x0,) = torch.autograd.grad(loss.sum(), x0_leaf)
         return loss.detach(), g_x0
 
@@ -491,7 +534,7 @@ def guided_sample_loop(
             vals = {k: np.round(v[0].detach().cpu().numpy(), 3).tolist() for k, v in phi.items()}
             print(f"  t={t:4d} loss={float(sep[0]):.3f} {vals}", flush=True)
 
-    return GuidedResult(
+    res = GuidedResult(
         sample=x,
         pred_xstart=x0,
         phi=phi,
@@ -504,3 +547,19 @@ def guided_sample_loop(
         eps_hist=eps_hist if ltsp else None,
         snapshot_steps=tuple(rec_steps),
     )
+    return _gather_images(res, mesh, lane_separable) if sharded else res
+
+
+_ROWS = ("sample", "pred_xstart", "phi", "opt_state", "eps_hist")  # images on axis 0
+_COLUMNS = ("sep_loss", "phi_trace", "x0_std_trace", "x0_snapshots")  # axis 1
+
+
+def _gather_images(res: GuidedResult, mesh, lane_separable: bool) -> GuidedResult:
+    """Every dp rank's images of a result, concatenated in rank (and so
+    image) order on every rank. The joint loss's aux traces ([T]) are batch
+    values, reduced already and the same on every rank; the fleet's are per
+    lane ([T, B])."""
+    columns = _COLUMNS + (("aux_trace",) if lane_separable else ())
+    gather = lambda dim: lambda t: gather_batch(t, mesh, dim)  # noqa: E731
+    return dataclasses.replace(res, **{f: map_tensors(gather(0), getattr(res, f)) for f in _ROWS},
+                               **{f: map_tensors(gather(1), getattr(res, f)) for f in columns})

@@ -13,7 +13,8 @@ codec (``utils/msgpack.py``), so the two packages read each other's
 checkpoints, and :func:`unet_from_msgpack` builds a UNet from such a file.
 :func:`load_params_orbax` reads the JAX package's orbax checkpoint
 directories (OCDBT and zarr v2, ``utils/ocdbt.py``) without orbax or
-tensorstore.
+tensorstore, and :func:`save_params_orbax` writes one that both packages'
+``load_params_orbax`` read.
 :func:`cast_params_half` is the counterpart of the JAX package's
 ``cast_params_half``: the bf16 torso's weights.
 """
@@ -23,6 +24,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -238,6 +241,87 @@ def load_params_orbax(path: str) -> Dict[str, Any]:
             node = node.setdefault(k, {})
         node[keys[-1]] = torch.from_numpy(arr).view(torch.bfloat16) if bf16 else arr
     return tree
+
+
+def _orbax_leaves(tree: Dict[str, Any], keys=()):
+    """(path of dict keys, leaf) for every leaf of a parameter tree, in the
+    order ``jax.tree_util`` flattens it (dict keys sorted)."""
+    for k in sorted(tree):
+        if not isinstance(k, str):
+            raise ValueError(f"{keys + (k,)}: orbax paths here are string dict keys")
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _orbax_leaves(v, keys + (k,))
+        else:
+            yield keys + (k,), v
+
+
+def _zarr_leaf(leaf):
+    """(C-order numpy array of the leaf's bytes, zarr dtype): a bfloat16
+    tensor or array as its uint16 bits under ``"bfloat16"``."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        leaf = t.numpy()
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, from the JAX package
+        return arr.view(np.uint16), "bfloat16"
+    if arr.dtype.hasobject or arr.dtype.names:
+        raise ValueError(f"orbax: dtype {arr.dtype} is not written")
+    return arr, arr.dtype.str
+
+
+def save_params_orbax(params: Dict[str, Any], path: str) -> None:
+    """Write a parameter tree as the JAX package's ``save_params_orbax``
+    does (orbax's ``StandardCheckpointer``, ``force=True``): a directory of
+    ``_METADATA``, ``_CHECKPOINT_METADATA`` and one OCDBT database holding a
+    zarr v2 array per leaf (``utils/ocdbt``), without orbax or tensorstore.
+    Leaves are numpy arrays or tensors (bfloat16 kept); each is one zarr
+    chunk up to ``ocdbt.CHUNK_BYTES``. The directory is written beside
+    ``path``; at the end what was at ``path`` is renamed aside, the new one
+    renamed onto ``path`` and the old one removed, so a crash at any point
+    leaves each of the two whole under one of the three names."""
+    path = os.path.abspath(path)
+    leaves = list(_orbax_leaves(params))
+    tmp = f"{path}.orbax-tmp-{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    init = time.time_ns()
+    try:
+        with ocdbt.Writer(tmp) as writer:
+            for keys, leaf in leaves:
+                arr, dtype = _zarr_leaf(leaf)
+                ocdbt.write_array(writer, ".".join(keys), arr, dtype)
+        meta = {"tree_metadata": {str(keys): {
+            "key_metadata": [{"key": k, "key_type": 2} for k in keys],
+            "value_metadata": {"value_type": "np.ndarray", "skip_deserialize": False}}
+            for keys, _ in leaves},
+            "use_ocdbt": True, "use_zarr3": False, "store_array_data_equal_to_fill_value": True,
+            "custom_metadata": None}
+        with open(os.path.join(tmp, "_METADATA"), "w") as f:
+            json.dump(meta, f)
+        with open(os.path.join(tmp, "_CHECKPOINT_METADATA"), "w") as f:
+            json.dump({"item_handlers": "orbax.checkpoint._src.handlers."
+                                        "standard_checkpoint_handler.StandardCheckpointHandler",
+                       "metrics": {}, "performance_metrics": {}, "init_timestamp_nsecs": init,
+                       "commit_timestamp_nsecs": time.time_ns(), "custom_metadata": {}}, f)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    old = f"{path}.orbax-old-{os.getpid()}"
+    shutil.rmtree(old, ignore_errors=True)
+    had_old = os.path.lexists(path)
+    if had_old:
+        os.replace(path, old)
+    try:
+        os.replace(tmp, path)
+    except BaseException:
+        if had_old:
+            os.replace(old, path)
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+    if had_old:
+        shutil.rmtree(old) if os.path.isdir(old) and not os.path.islink(old) else os.remove(old)
 
 
 def is_orbax_checkpoint(path: Optional[str]) -> bool:

@@ -3,7 +3,8 @@
 (dp, tp) mesh (:mod:`.mesh`, with the tensor-parallel UNet of :mod:`.tp`)."""
 
 from .mesh import (  # noqa: F401
-    Mesh, batch_sharding, make_mesh, replicated, shard_batch, shard_params,
+    Mesh, batch_sharding, dp_mean, dp_sum, gather_batch, make_mesh, replicated, shard_batch,
+    shard_params,
 )
 from .multihost import (  # noqa: F401
     barrier, gather_pytree, gather_scalars, host_slice, initialize, is_multihost,

@@ -1,9 +1,13 @@
 """The (dp, tp) device mesh over ``torch.distributed`` processes (port of
 ``osmosis_tpu/parallel/mesh.py``).
 
-  * **dp** (data parallel): independent images shard over the batch axis
-    (:func:`shard_batch`); the fleet runner's ``mesh=`` runs each dp rank's
-    lanes and gathers every lane on every rank (``parallel/runner.py``).
+  * **dp** (data parallel): images shard over the batch axis
+    (:func:`shard_batch`); ``guided_sample_loop(mesh=)`` runs each dp rank's
+    images and gathers every image on every rank (:func:`gather_batch`).
+    Where the guidance loss couples the images (the serial chain's joint
+    norm, the aux losses' batch sums and means), its batch-wide reductions
+    go through :func:`dp_sum` / :func:`dp_mean`; the fleet's lanes
+    (``parallel/runner.py``) need none.
   * **tp** (tensor parallel): the UNet's output features shard over 'tp'
     (:func:`shard_params`): conv kernels, Linear and 1x1 Conv1d weights and
     every 1-D bias and GroupNorm affine whose JAX leaf has a trailing axis
@@ -162,6 +166,57 @@ def shard_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
         raise ValueError(f"a batch of {n} does not split over dp={mesh.dp}")
     step = n // mesh.dp
     return x[mesh.index("dp") * step:(mesh.index("dp") + 1) * step]
+
+
+class _DpSum(torch.autograd.Function):
+    """Megatron's g for a reduced loss term: the sum over the dp group
+    forward, the identity backward. Every dp rank then holds the same total
+    and differentiates its own copy, so the gradient of its local partial
+    sum is the gradient of the total; an all-reduce in the backward (as
+    ``torch.distributed.nn.functional.all_reduce`` has) would make every
+    gradient dp times too large."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        total = t.clone()
+        dist.all_reduce(total, group=group)
+        return total
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _reduces(mesh: Optional[Mesh]) -> bool:
+    return mesh is not None and mesh.dp > 1
+
+
+def dp_sum(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """``t`` summed over the mesh's dp ranks (autograd goes through it, see
+    :class:`_DpSum`); the tp ranks of one dp index hold the same slice and
+    are not summed. ``t`` itself on the 1 x 1 mesh and with ``mesh=None``.
+    Its downstream use must be the same on every dp rank (a replicated
+    loss), which is what makes the identity backward right."""
+    return _DpSum.apply(t, mesh.group("dp")) if _reduces(mesh) else t
+
+
+def dp_mean(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The mean of ``t`` over every dp rank's elements: the local sum
+    reduced by :func:`dp_sum` over the global element count (the ranks hold
+    equal slices). ``t.mean()`` without dp."""
+    return dp_sum(t.sum(), mesh) / (t.numel() * mesh.dp) if _reduces(mesh) else t.mean()
+
+
+def gather_batch(t: torch.Tensor, mesh: Optional[Mesh], dim: int = 0) -> torch.Tensor:
+    """Every dp rank's slice of ``t`` along ``dim``, concatenated in rank
+    (and so image) order on every rank: the inverse of :func:`shard_batch`.
+    ``t`` itself without dp."""
+    if not _reduces(mesh):
+        return t
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(mesh.dp)]
+    dist.all_gather(parts, t, group=mesh.group("dp"))
+    return torch.cat(parts, dim=dim)
 
 
 def batch_sharding(mesh: Mesh):

@@ -9,11 +9,11 @@ the sample, x0-hat and phi are [N, ...], the traces [T, N, ...];
 :func:`lane` takes one image's batch-1 result out of them.
 
 With ``mesh=`` (``parallel/mesh.make_mesh``) the N lanes shard over the
-mesh's dp axis: each dp rank runs its ``shard_batch`` slice of them through
-the same loop, and the result holds all N lanes, in lane order, on every
-rank (an all-gather over the dp group). Chain noise is drawn for all N lanes
-and sliced, so a lane sees the noise it sees unsharded. A tensor-parallel
-model (``mesh.shard_params``) runs under it as it is.
+mesh's dp axis, as ``guided_sample_loop(mesh=)`` shards any batch: each dp
+rank runs its ``shard_batch`` slice of them, and the result holds all N
+lanes, in lane order, on every rank. Chain noise is drawn for all N lanes
+and sliced, so a lane sees the noise it sees unsharded; the lanes' losses
+are their own, so nothing is reduced over dp.
 """
 
 from __future__ import annotations
@@ -22,30 +22,18 @@ import dataclasses
 from typing import Optional, Sequence
 
 import torch
-import torch.distributed as dist
 
 from ..diffusion.guided import (
     GuidanceConfig,
     GuidedResult,
     guided_sample_loop,
     keyed_noise_fn,
+    map_tensors,
 )
 from ..diffusion.sampler import ModelFn, SamplerConfig
 from ..diffusion.schedules import DiffusionSchedule
 from ..guidance.operators import Operator
 from ..guidance.phi_optim import make_phi_optimizer
-
-
-def map_tensors(fn, tree):
-    """``fn`` on every tensor of a tree of dicts, tuples and lists; other
-    leaves (the Adam step count) pass through."""
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: map_tensors(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(map_tensors(fn, v) for v in tree)
-    return tree
 
 
 def _broadcast_cold_start(operator: Operator, n: int, device):
@@ -79,27 +67,6 @@ def lane(res: GuidedResult, j: int) -> GuidedResult:
     )
 
 
-_ROWS = ("sample", "pred_xstart", "phi", "opt_state", "eps_hist")  # lanes on axis 0
-_COLUMNS = ("sep_loss", "phi_trace", "aux_trace", "x0_std_trace", "x0_snapshots")  # axis 1
-
-
-def _gather_lanes(res: GuidedResult, mesh) -> GuidedResult:
-    """Every dp rank's lanes of a fleet result, concatenated in rank (and so
-    lane) order on every rank."""
-    group = mesh.group("dp")
-
-    def gather(axis):
-        def fn(t):
-            t = t.contiguous()
-            parts = [torch.empty_like(t) for _ in range(mesh.dp)]
-            dist.all_gather(parts, t, group=group)
-            return torch.cat(parts, dim=axis)
-        return fn
-
-    return dataclasses.replace(res, **{f: map_tensors(gather(0), getattr(res, f)) for f in _ROWS},
-                               **{f: map_tensors(gather(1), getattr(res, f)) for f in _COLUMNS})
-
-
 def make_batched_segment_runner(
     model_fn: ModelFn,
     schedule: DiffusionSchedule,
@@ -128,28 +95,9 @@ def make_batched_segment_runner(
 
     def run(xs, ys, seed=None, phi0s=None, opt0s=None, eta_scale=None,
             ts: Optional[Sequence[int]] = None, buf0s=None, eps0s=None, noise_fn=None):
-        n = xs.shape[0]
         if noise_fn is None and seed is not None:
             # one draw broadcast to every lane: lane j sees image j's batch-1 noise
             noise_fn = keyed_noise_fn(seed, xs.device, xs.dtype, shared_lanes=True)
-        if mesh is not None and mesh.dp > 1:
-            from .mesh import shard_batch
-
-            xs, ys = shard_batch(xs, mesh), shard_batch(ys, mesh)
-            lo, hi = mesh.index("dp") * xs.shape[0], (mesh.index("dp") + 1) * xs.shape[0]
-            rows = lambda a: a[lo:hi]  # noqa: E731
-            phi0s, opt0s, eps0s = (None if v is None else map_tensors(rows, v)
-                                   for v in (phi0s, opt0s, eps0s))
-            buf0s = None if buf0s is None else buf0s[:, lo:hi]
-            if noise_fn is not None:  # drawn for all n lanes: a lane's noise is its own
-                whole = noise_fn
-                noise_fn = lambda t, shape, *i: whole(  # noqa: E731
-                    t, (n,) + tuple(shape[1:]), *i)[lo:hi]
-            return _gather_lanes(_loop(xs, ys, phi0s, opt0s, eta_scale, ts, buf0s, eps0s,
-                                       noise_fn), mesh)
-        return _loop(xs, ys, phi0s, opt0s, eta_scale, ts, buf0s, eps0s, noise_fn)
-
-    def _loop(xs, ys, phi0s, opt0s, eta_scale, ts, buf0s, eps0s, noise_fn):
         cold_phi, cold_opt = _broadcast_cold_start(operator, xs.shape[0], xs.device)
         return guided_sample_loop(
             model_fn, schedule, xs, ys, operator, gcfg, scfg,
@@ -160,6 +108,7 @@ def make_batched_segment_runner(
             opt_state_init=cold_opt if opt0s is None else opt0s,
             noise_fn=noise_fn, eta_scale=eta_scale, ts=ts, x0_buf_init=buf0s,
             eps_hist_init=eps0s, lane_separable=True, progress_every=progress_every,
+            mesh=mesh,
         )
 
     return run

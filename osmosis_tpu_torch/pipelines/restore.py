@@ -51,7 +51,9 @@ from .. import perf as PF
 from ..data import datasets as D
 from ..data import postprocess as P
 from ..data import transforms as TR
-from ..diffusion.guided import GuidanceConfig, GuidedResult, draw_seed, guided_sample_loop
+from ..diffusion.guided import (
+    GuidanceConfig, GuidedResult, draw_seed, guided_sample_loop, map_tensors,
+)
 from ..diffusion.sampler import SamplerConfig
 from ..diffusion.schedules import make_schedule
 from ..guidance.noise import get_noiser
@@ -59,7 +61,7 @@ from ..guidance.operators import convert_depth, get_operator
 from ..models.convert import load_unet
 from ..models.unet import unet_config_from_yaml
 from ..parallel import multihost as MH
-from ..parallel.runner import lane, make_batched_segment_runner, map_tensors
+from ..parallel.runner import lane, make_batched_segment_runner
 from ..utils import logging as L
 from ..utils import native
 from ..utils import profiling as prof

@@ -1,5 +1,5 @@
-"""The (dp, tp) mesh against one process: a sharded UNet, a sharded guided
-chain and a sharded fleet must compute what the unsharded ones compute.
+"""The (dp, tp) mesh against one process: a sharded UNet, sharded guided
+chains and a sharded fleet must compute what the unsharded ones compute.
 
     python -m osmosis_tpu_torch.tools.mesh_check --checkpoint CKPT --out DIR \\
         [--ranks 2] [--backend gloo] [--meshes 1x2,2x1] [--size 256] [--cpu | -d 0]
@@ -15,15 +15,25 @@ and holds every rank's result against the reference:
     x at batch 1, t = 999;
   * ``chain`` (tp-only meshes): the guided chain at batch 1 with the dryrun's
     settings (``__graft_entry__._guided_chain_parts``: the underwater
-    operator, sgd phi, scale 7,7,7,0.9), ``--steps`` steps, ``--n-iter``
-    phi iterations, clip_denoised, noise drawn once (or read from the
-    inputs) and fed through ``noise_fn``;
+    operator, sgd phi, scale 7,7,7,0.9, the aux losses avrg 0.5 and val 20),
+    ``--steps`` steps, ``--n-iter`` phi iterations, ``--x-prev-every``,
+    clip_denoised, noise drawn once (or read from the inputs) and fed
+    through ``noise_fn``;
+  * ``joint`` (meshes with dp > 1): the same chain at batch ``--lanes`` (dp
+    x k images), whose loss couples the images (the joint norm and the aux
+    losses over the whole batch), through ``guided_sample_loop(mesh=)``:
+    each dp rank runs its images and reduces the loss over the dp group
+    (the dryrun's phase 1, ``run_guided_chain(batch_size=dp, mesh=)``),
+    the noise of every image read from the inputs;
   * ``fleet`` (meshes with dp > 1): the fleet runner (``parallel/runner.py``) at
-    ``--lanes`` lanes with ``mesh=``, chain noise keyed on a seed. Under
-    dp > 1 the reference runs each rank's lanes in a call of their own, at
-    the batch the rank runs them; the difference from the whole batch in one
-    call (the fleet's own batch-size rounding, which the guided chain
-    amplifies) is reported beside it, not held.
+    ``--lanes`` lanes with ``mesh=``, chain noise keyed on a seed.
+
+Under dp > 1 a rank differs from one process at the whole batch in its
+UNet's batch and in the order of the loss's sums, and the guided chain
+amplifies the first: so the reference of ``joint`` runs the whole batch
+with its UNet called on one rank's share of the images at a time, and that
+of ``fleet`` each rank's lanes in a call of their own; the difference from
+the whole batch in one call is reported beside each, not held.
 
 Ranks that share one card (``-d 0`` for all) need gloo; NCCL takes a card a
 rank (rank k on ``cuda:k``). Each rank writes its outputs
@@ -37,7 +47,12 @@ compared and ``summary.json`` written before a failure raises.
 ``--perturb EPS`` also reruns each one-process check with the UNet's output
 moved by EPS of seeded noise and reports how far that moves its outputs:
 the guided chain with clip_denoised amplifies rounding where x0-hat sits at
-the clamp's edge.
+the clamp's edge. For each dp mesh ``summary.json`` also holds ``edges``
+(:func:`edge_report`): where the joint chain's sample is furthest from its
+reference, x0-hat before the clamp there at each step in both runs, the
+last step's guidance gradient against the gradient clip, and the elements
+the clamp takes in one run and not the other; ``conditioning_edges`` holds
+the same for each perturbed one-process joint chain against its own.
 """
 
 from __future__ import annotations
@@ -58,10 +73,12 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 RTOL = ATOL = 5e-4
 LOSS_TOL = 1e-3
-CHECKS = ("unet", "chain", "fleet")
+CHECKS = ("unet", "chain", "joint", "fleet")
+TRACE = "trace."  # a joint check's arrays for edge_report, not held to the bar
 
 
-def chain_parts(batch_size: int = 1, steps: int = 4, n_iter: int = 2, update_start: float = 0.7):
+def chain_parts(batch_size: int = 1, steps: int = 4, n_iter: int = 2, update_start: float = 0.7,
+                x_prev_every: int = 1):
     """The port's copy of ``__graft_entry__._guided_chain_parts``: schedule,
     operator, sample pattern and guidance config of the short guided chain."""
     from ..diffusion.guided import GuidanceConfig
@@ -79,20 +96,23 @@ def chain_parts(batch_size: int = 1, steps: int = 4, n_iter: int = 2, update_sta
     gcfg = GuidanceConfig.from_config(
         "osmosis", dict(loss_function="norm", loss_weight="depth",
                         weight_function="gamma,1.4,1.4,1", scale="7,7,7,0.9",
-                        gradient_x_prev=True, gradient_clip="True,0.005", x_prev_every=1),
+                        gradient_x_prev=True, gradient_clip="True,0.005",
+                        x_prev_every=x_prev_every),
         pattern, {"aux_loss": {"avrg_loss": 0.5, "val_loss": 20.0}})
     return schedule, operator, pattern, gcfg
 
 
 def make_inputs(path: str, size: int, steps: int, lanes: int, seed: int = 0) -> None:
     """Seeded inputs: x and y at batch 1 and at ``lanes``, the cotangent of
-    the UNet's output, and the chain's noise for each step."""
+    the UNet's output, and the chain's noise for each step at batch 1
+    (``noise``) and at ``lanes`` (``noises``)."""
     rng = np.random.default_rng(seed)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
     np.savez(path, x=f(1, size, size, 4), y=rng.uniform(-1, 1, (1, size, size, 3)).astype(
         np.float32), cot=f(1, size, size, 8), noise=f(steps, 1, size, size, 4),
         xs=f(lanes, size, size, 4),
-        ys=rng.uniform(-1, 1, (lanes, size, size, 3)).astype(np.float32))
+        ys=rng.uniform(-1, 1, (lanes, size, size, 3)).astype(np.float32),
+        noises=f(steps, lanes, size, size, 4))
 
 
 def kernel_counts() -> Dict[str, int]:
@@ -121,11 +141,80 @@ def _result(res) -> Dict[str, np.ndarray]:
     return {k: v.detach().float().cpu().numpy() for k, v in out.items()}
 
 
+def chunked(model, parts: int):
+    """``model`` called on ``parts`` equal slices of the batch in turn, as
+    ``parts`` dp ranks call it."""
+    def fn(x, t):
+        return torch.cat([model(a, b) for a, b in zip(x.chunk(parts), t.chunk(parts))])
+    return fn
+
+
+def recorded(model, calls: list):
+    """``model``, keeping each call's input and output in ``calls``."""
+    def fn(x, t):
+        out = model(x, t)
+        calls.append((x.detach(), out.detach()))
+        return out
+    return fn
+
+
+def edge_trace(calls: list, res, schedule, mesh=None) -> Dict[str, np.ndarray]:
+    """What :func:`edge_report` reads of a joint chain (one UNet call a step)
+    on this rank's images: x0-hat before the clamp at each step ([T, B, H, W,
+    C]) and the last step's guidance, its posterior mean less its sample (no
+    noise is added at t = 0)."""
+    from ..diffusion.sampler import (SamplerConfig, device_constants, posterior_mean,
+                                     predict_xstart, split_model_output)
+
+    consts = device_constants(schedule, calls[0][0].device)
+    x0s = []
+    for s, (x, out) in enumerate(calls):
+        tb = torch.full((x.shape[0],), schedule.num_timesteps - 1 - s, dtype=torch.long,
+                        device=x.device)
+        x0s.append(predict_xstart(x, tb, split_model_output(out, x.shape[-1])[0], consts,
+                                  SamplerConfig()))
+    B = x.shape[0]
+    row0 = mesh.index("dp") * B if mesh is not None else 0
+    guidance = posterior_mean(x0s[-1].clamp(-1.0, 1.0), x, tb, consts) - res.sample[row0:row0 + B]
+    return {TRACE + "x0_pre": torch.stack(x0s).cpu().numpy(),
+            TRACE + "guidance": guidance.cpu().numpy()}
+
+
+def edge_report(ref: Dict[str, np.ndarray], got: Dict[str, np.ndarray], gcfg) -> dict:
+    """Where the joint chain's sample ``got`` is furthest from ``ref`` (both
+    with :func:`edge_trace`'s arrays for the whole batch): the index [b, y, x,
+    c], both samples, both last-step guidance gradients (guidance over the
+    channel's scale; ``gcfg``'s gradient clip holds them within it), and at each
+    step both x0-hat before the clamp at the index, the count of elements
+    the clamp (|x0-hat| > 1) takes in one run and not the other, and the
+    nearest of them to the index in its image (Chebyshev pixels)."""
+    diff = np.abs(got["sample"].astype(np.float64) - ref["sample"])
+    idx = tuple(int(i) for i in np.unravel_index(int(diff.argmax()), diff.shape))
+    x0r, x0g = ref[TRACE + "x0_pre"], got[TRACE + "x0_pre"]
+    c_scale = float(np.broadcast_to(np.asarray(gcfg.scale, np.float64),
+                                    (diff.shape[-1],))[idx[-1]])
+    steps = []
+    for k in range(len(x0r)):
+        flips = np.argwhere((np.abs(x0r[k]) > 1) != (np.abs(x0g[k]) > 1))
+        same = flips[flips[:, 0] == idx[0]]
+        dist = np.abs(same[:, 1:3] - np.asarray(idx[1:3])).max(1) if len(same) else None
+        steps.append(dict(
+            x0_pre=[float(x0r[k][idx]), float(x0g[k][idx])], clamp_flips=int(len(flips)),
+            nearest_flip=None if dist is None else [int(i) for i in same[int(dist.argmin())]],
+            nearest_flip_pixels=None if dist is None else int(dist.min())))
+    return dict(index=list(idx), max_abs=float(diff[idx]),
+                sample=[float(ref["sample"][idx]), float(got["sample"][idx])],
+                gradient=[float(ref[TRACE + "guidance"][idx]) / c_scale,
+                          float(got[TRACE + "guidance"][idx]) / c_scale],
+                gradient_clip=gcfg.gradient_clip_value, steps=steps)
+
+
 def run_check(check: str, model, inputs: dict, device, args, mesh=None,
               shards: int = 1) -> Dict[str, np.ndarray]:
-    """One check on ``model`` (sharded or not), its outputs as numpy. The
-    fleet runs its lanes in ``shards`` groups, one call each, as ``shards``
-    dp ranks run them."""
+    """One check on ``model`` (sharded or not), its outputs as numpy. With
+    ``shards`` the joint chain calls its UNet on ``shards`` slices of the
+    batch, and the fleet runs its lanes in ``shards`` groups, one call each,
+    as ``shards`` dp ranks do."""
     from ..diffusion.guided import guided_sample_loop
     from ..diffusion.sampler import SamplerConfig
     from ..parallel.runner import make_batched_guided_runner
@@ -136,15 +225,24 @@ def run_check(check: str, model, inputs: dict, device, args, mesh=None,
         out = model(x, torch.full((1,), 999, device=device))
         (dx,) = torch.autograd.grad(out, x, dev("cot"))
         return {"out": out.detach().cpu().numpy(), "dx": dx.cpu().numpy()}
+    chain = (args.steps, args.n_iter, args.update_start, args.x_prev_every)
     if check == "chain":
-        schedule, operator, pattern, gcfg = chain_parts(1, args.steps, args.n_iter,
-                                                        args.update_start)
+        schedule, operator, pattern, gcfg = chain_parts(1, *chain)
         noise = dev("noise")
         res = guided_sample_loop(model, schedule, dev("x"), dev("y"), operator, gcfg,
                                  SamplerConfig(clip_denoised=True), sample_pattern=pattern,
                                  noise_fn=lambda t, shape, *i: noise[int(t)].expand(shape))
         return _result(res)
-    schedule, operator, pattern, gcfg = chain_parts(1, args.steps, args.n_iter, args.update_start)
+    if check == "joint":
+        xs, noises = dev("xs"), dev("noises")
+        schedule, operator, pattern, gcfg = chain_parts(xs.shape[0], *chain)
+        calls: list = []
+        res = guided_sample_loop(recorded(chunked(model, shards), calls), schedule, xs,
+                                 dev("ys"), operator, gcfg, SamplerConfig(clip_denoised=True),
+                                 sample_pattern=pattern,
+                                 noise_fn=lambda t, shape, *i: noises[int(t)], mesh=mesh)
+        return {**_result(res), **edge_trace(calls, res, schedule, mesh)}
+    schedule, operator, pattern, gcfg = chain_parts(1, *chain)
     run = make_batched_guided_runner(model, schedule, operator, gcfg,
                                      SamplerConfig(clip_denoised=True), sample_pattern=pattern,
                                      mesh=mesh)
@@ -170,10 +268,10 @@ def perturbed(model, eps: float, device, seed: int = 0):
 
 
 def checks_of(mesh_name: str):
-    """The UNet and the batch-1 chain on a tp-only mesh, the fleet where
-    there is a dp axis."""
+    """The UNet and the batch-1 chain on a tp-only mesh, the joint chain and
+    the fleet where there is a dp axis."""
     dp, tp = (int(v) for v in mesh_name.split("x"))
-    return ("unet", "chain") if dp == 1 and tp > 1 else ("fleet",)
+    return ("unet", "chain") if dp == 1 and tp > 1 else ("joint", "fleet")
 
 
 def _device(args):
@@ -253,10 +351,14 @@ def rank_main(args) -> int:
     return 0
 
 
+def _held(out: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    return {k: v for k, v in out.items() if not k.startswith(TRACE)}
+
+
 def differences(ref: Dict[str, np.ndarray], got: Dict[str, np.ndarray]) -> dict:
     """{output: max abs and max relative difference}."""
     out = {}
-    for k, r in ref.items():
+    for k, r in _held(ref).items():
         diff = np.abs(got[k].astype(np.float64) - r)
         out[k] = dict(max_abs=float(diff.max(initial=0.0)),
                       max_rel=float((diff / np.maximum(np.abs(r), 1e-12)).max(initial=0.0)))
@@ -266,7 +368,7 @@ def differences(ref: Dict[str, np.ndarray], got: Dict[str, np.ndarray]) -> dict:
 def compare(ref: Dict[str, np.ndarray], got: Dict[str, np.ndarray], what: str) -> dict:
     """:func:`differences`; raises past the bar (or on a non-finite value or
     another shape)."""
-    for k, r in ref.items():
+    for k, r in _held(ref).items():
         g = got[k]
         if g.shape != r.shape:
             raise AssertionError(f"{what} {k}: shape {g.shape}, expected {r.shape}")
@@ -297,7 +399,7 @@ def launch(args, timeout: float) -> dict:
         make_inputs(path, args.size, args.steps, args.lanes)
     inputs = dict(np.load(path))
     model = _load(args, device)
-    summary: dict = dict(reference={}, meshes={})
+    summary: dict = dict(reference={}, meshes={}, edges={})
     refs = {}
     for check in sorted({c for m in meshes for c in checks_of(m)}, key=CHECKS.index):
         _sync(device)
@@ -311,15 +413,20 @@ def launch(args, timeout: float) -> dict:
             seconds=time.perf_counter() - t0, launches=kernel_counts(),
             peak_bytes=torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None)
     for dp in sorted({int(m.split("x")[0]) for m in meshes} - {1}):
-        # what one process computes for the lanes of each of dp ranks
-        refs[f"fleet/{dp}"] = run_check("fleet", model, inputs, device, args, shards=dp)
+        # what one process computes where its UNet sees what each of dp ranks sees
+        for check in ("joint", "fleet"):
+            refs[f"{check}/{dp}"] = run_check(check, model, inputs, device, args, shards=dp)
+    _, _, _, gcfg = chain_parts(args.lanes, args.steps, args.n_iter, args.update_start,
+                                args.x_prev_every)
     if args.perturb:
-        summary["conditioning"] = {
-            name: differences(ref, run_check(name.split("/")[0], perturbed(model, args.perturb,
-                                                                           device),
-                                             inputs, device, args,
-                                             shards=int(name.split("/")[1]) if "/" in name else 1))
-            for name, ref in refs.items()}
+        summary["conditioning"], summary["conditioning_edges"] = {}, {}
+        for name, ref in refs.items():
+            check, _, dp = name.partition("/")
+            out = run_check(check, perturbed(model, args.perturb, device), inputs, device, args,
+                            shards=int(dp or 1))
+            summary["conditioning"][name] = differences(ref, out)
+            if check == "joint":
+                summary["conditioning_edges"][name] = edge_report(ref, out, gcfg)
     del model
     if device.type == "cuda":
         torch.cuda.empty_cache()
@@ -363,19 +470,27 @@ def launch(args, timeout: float) -> dict:
             dp = rep["mesh"]["dp"]
             for check in checks_of(mesh_name):
                 got = dict(np.load(os.path.join(args.out, f"{mesh_name}_{check}_rank{k}.npz")))
-                ref = refs[f"fleet/{dp}"] if check == "fleet" and dp > 1 else refs[check]
+                ref = refs[f"{check}/{dp}"] if dp > 1 else refs[check]
                 try:
                     rep["differences"][check] = compare(ref, got, f"mesh {mesh_name} rank {k} "
                                                                   f"{check}")
                 except AssertionError as e:
                     failures.append(str(e))
-                    if all(got[o].shape == r.shape for o, r in ref.items()):
+                    if all(got[o].shape == r.shape for o, r in _held(ref).items()):
                         rep["differences"][check] = differences(ref, got)
-                if check == "fleet" and dp > 1:  # reported, not held: lanes at another batch
-                    rep["whole_batch_fleet_differences"] = differences(refs["fleet"], got)
+                if dp > 1:  # reported, not held: the UNet at another batch
+                    rep[f"whole_batch_{check}_differences"] = differences(refs[check], got)
             del rep["placements"]
             ranks.append(rep)
         summary["meshes"][mesh_name] = ranks
+        if ranks[0]["mesh"]["dp"] > 1:  # the joint chain's worst value, from every dp rank's trace
+            traces = [np.load(os.path.join(args.out, f"{mesh_name}_joint_rank{r['rank']}.npz"))
+                      for r in sorted(ranks, key=lambda r: r["dp_index"]) if r["tp_index"] == 0]
+            got = {"sample": traces[0]["sample"],
+                   **{k: np.concatenate([t[k] for t in traces], axis=int(k.endswith("x0_pre")))
+                      for k in traces[0].files if k.startswith(TRACE)}}
+            summary["edges"][mesh_name] = edge_report(
+                refs[f"joint/{ranks[0]['mesh']['dp']}"], got, gcfg)
     summary["failures"] = failures
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
@@ -399,10 +514,12 @@ def parse(argv: Optional[list] = None):
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--n-iter", type=int, default=1)
     ap.add_argument("--update-start", type=float, default=1.0)
+    ap.add_argument("--x-prev-every", type=int, default=1,
+                    help="the hybrid schedule's x_prev_every (needs --steps above it)")
     ap.add_argument("--lanes", type=int, default=2)
     ap.add_argument("--seed", type=int, default=5)
-    ap.add_argument("--inputs", default=None, help="an .npz of x, y, cot, noise, xs, ys to use "
-                                                   "instead of seeded draws")
+    ap.add_argument("--inputs", default=None, help="an .npz of x, y, cot, noise, xs, ys, noises "
+                                                   "to use instead of seeded draws")
     ap.add_argument("--perturb", type=float, default=0.0,
                     help="also run each one-process check with the UNet's output moved by this "
                          "much seeded noise and report how far its outputs move (summary "

@@ -8,8 +8,9 @@
 // for the outputs. A plain C ABI for ctypes; osmosis_tpu_torch/utils/native.py
 // builds it at first use (g++ -O3 -march=native -fopenmp, links zlib) and
 // the Python layer keeps a numpy path for machines that cannot build it.
-// Also a Zstandard decoder (RFC 8878) for orbax checkpoints, the twin of
-// osmosis_tpu_torch/utils/zstd.py.
+// Also, for orbax checkpoints, a Zstandard decoder (RFC 8878), the twin of
+// osmosis_tpu_torch/utils/zstd.py, and CRC-32C, the twin of
+// osmosis_tpu_torch/utils/ocdbt.py's crc32c_py.
 
 #include <algorithm>
 #include <cmath>
@@ -771,5 +772,39 @@ long long zstd_decompress(const uint8_t* src, size_t n, uint8_t* dst, size_t cap
 }
 
 const char* zstd_last_error() { return zstd::last_error.c_str(); }
+
+// ---------------------------------------------------------------------------
+// CRC-32C (Castagnoli, reflected 0x82F63B78; init and final xor ~0), eight
+// bytes a step from eight tables (slice-by-8): the checksum of every OCDBT
+// manifest and B-tree node.
+// ---------------------------------------------------------------------------
+struct Crc32cTables {
+  uint32_t t[8][256];
+  Crc32cTables() {
+    for (uint32_t i = 0; i < 256; ++i) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; ++k) c = (c & 1) ? (c >> 1) ^ 0x82F63B78u : c >> 1;
+      t[0][i] = c;
+    }
+    for (int k = 1; k < 8; ++k)
+      for (int i = 0; i < 256; ++i) t[k][i] = (t[k - 1][i] >> 8) ^ t[0][t[k - 1][i] & 0xFF];
+  }
+};
+
+uint32_t crc32c(const uint8_t* p, size_t n) {
+  static const Crc32cTables tables;
+  const auto& T = tables.t;
+  uint32_t c = 0xFFFFFFFFu;
+  for (; n >= 8; p += 8, n -= 8) {
+    const uint32_t lo = c ^ ((uint32_t)p[0] | (uint32_t)p[1] << 8 | (uint32_t)p[2] << 16 |
+                             (uint32_t)p[3] << 24);
+    const uint32_t hi = (uint32_t)p[4] | (uint32_t)p[5] << 8 | (uint32_t)p[6] << 16 |
+                        (uint32_t)p[7] << 24;
+    c = T[7][lo & 0xFF] ^ T[6][(lo >> 8) & 0xFF] ^ T[5][(lo >> 16) & 0xFF] ^ T[4][lo >> 24] ^
+        T[3][hi & 0xFF] ^ T[2][(hi >> 8) & 0xFF] ^ T[1][(hi >> 16) & 0xFF] ^ T[0][hi >> 24];
+  }
+  for (; n; ++p, --n) c = T[0][(c ^ *p) & 0xFF] ^ (c >> 8);
+  return c ^ 0xFFFFFFFFu;
+}
 
 }  // extern "C"

@@ -108,6 +108,8 @@ def _bind(path: str) -> ctypes.CDLL:
     lib.zstd_decompress.restype = ctypes.c_longlong
     lib.zstd_last_error.argtypes = []
     lib.zstd_last_error.restype = ctypes.c_char_p
+    lib.crc32c.argtypes = [u8p, ctypes.c_size_t]
+    lib.crc32c.restype = ctypes.c_uint32
     return lib
 
 
@@ -228,3 +230,19 @@ def zstd_decompress(data: bytes, size: Optional[int] = None) -> Optional[bytes]:
         if size is not None:
             raise ZstdError(f"the frames hold more than the {size} bytes expected")
         cap *= 2
+
+
+def _u8(data) -> np.ndarray:
+    """A byte buffer (bytes, bytearray, memoryview, a C-contiguous array) as
+    a flat uint8 array over the same memory."""
+    return np.frombuffer(memoryview(data).cast("B"), dtype=np.uint8)
+
+
+def crc32c(data) -> Optional[int]:
+    """The CRC-32C of ``data`` (``utils/ocdbt.crc32c_py``'s value); None
+    where not native."""
+    lib = _load()
+    if lib is None:
+        return None
+    src = _u8(data)
+    return int(lib.crc32c(src, src.size))

@@ -1,6 +1,6 @@
-"""Read the key-value store of an orbax checkpoint, without tensorstore:
-OCDBT (TensorStore's optionally-cooperative distributed B+tree) and the zarr
-v2 arrays kept in it.
+"""Read and write the key-value store of an orbax checkpoint, without
+tensorstore: OCDBT (TensorStore's optionally-cooperative distributed B+tree)
+and the zarr v2 arrays kept in it.
 
 An orbax directory (``use_ocdbt: true, use_zarr3: false`` in its
 ``_METADATA``) is one OCDBT database: ``manifest.ocdbt`` holds the config
@@ -16,6 +16,14 @@ CRC-32C at its end, and compressed with zstd (``utils/zstd``). A parameter
 Only what a reader needs is implemented: the newest version is read, the
 older version-tree nodes are not. Every checksum the format has is checked;
 a damaged or truncated file raises :class:`OcdbtError`.
+
+:class:`Writer` and :func:`write_array` write the single-version database
+that orbax writes for one process, in orbax's config (values up to 1024
+bytes inline, zstd): one data file ``d/<hex>`` holding the values too large
+to inline, then the B+tree's leaf nodes (cut near :data:`NODE_BYTES`) and
+the interior nodes above them, then ``manifest.ocdbt`` naming the root.
+Nodes and the manifest are framed with their CRC-32C; everything zstd holds
+is raw blocks (``zstd.compress``).
 """
 
 from __future__ import annotations
@@ -24,7 +32,9 @@ import json
 import math
 import os
 import struct
-from typing import Dict, Optional, Tuple, Union
+import time
+import uuid
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
@@ -55,6 +65,16 @@ _CRC32C = _crc32c_table()
 
 
 def crc32c(data: bytes) -> int:
+    """CRC-32C of ``data``: the native host ops' where they are in use, else
+    :func:`crc32c_py`."""
+    from . import native
+
+    crc = native.crc32c(data)
+    return crc32c_py(data) if crc is None else crc
+
+
+def crc32c_py(data: bytes) -> int:
+    """CRC-32C (Castagnoli), a byte at a time: the native one's twin."""
     crc = 0xFFFFFFFF
     table = _CRC32C
     for b in data:
@@ -306,3 +326,205 @@ def read_array(db: Database, name: str):
         region = tuple(slice(i * c, min((i + 1) * c, s)) for i, c, s in zip(idx, chunks, shape))
         out[region] = chunk[tuple(slice(0, r.stop - r.start) for r in region)]
     return out, bf16
+
+
+# ---------------------------------------------------------------------------
+# writing
+# ---------------------------------------------------------------------------
+
+MAX_INLINE_VALUE_BYTES = 1024  # orbax's OCDBT config
+MAX_DECODED_NODE_BYTES = 100_000_000
+VERSION_TREE_ARITY_LOG2 = 4
+NODE_BYTES = 1 << 16  # a node is cut once its entries pass this many bytes
+# a zarr chunk holds at most this many bytes: each leaf of the 552.8M tree
+# (75.5 MB at most) is one chunk, as orbax writes it; a chunk cut from an
+# axis that its length does not divide is padded to its full shape
+CHUNK_BYTES = 1 << 30
+ZSTD = 1  # the compression method's id
+
+
+def _varint(v: int) -> bytes:
+    out = bytearray()
+    while v >= 0x80:
+        out.append((v & 0x7F) | 0x80)
+        v >>= 7
+    out.append(v)
+    return bytes(out)
+
+
+def _varints(vs) -> bytes:
+    return b"".join(_varint(v) for v in vs)
+
+
+def _frame(magic: int, body: bytes) -> bytes:
+    """:func:`_unframe`'s inverse: magic, length, format version 0, zstd,
+    the body, CRC-32C."""
+    payload = _varint(0) + _varint(ZSTD) + zstd.compress(body)
+    blob = struct.pack(">I", magic) + struct.pack("<Q", 12 + len(payload) + 4) + payload
+    return blob + struct.pack("<I", crc32c(blob))
+
+
+def _prefixed(keys: List[bytes]) -> Tuple[bytes, bytes]:
+    """Keys as :func:`_keys` reads them: (each one's prefix length shared
+    with the one before, from the second on, then the suffix lengths; the
+    suffixes)."""
+    pre = [len(os.path.commonprefix([a, b])) for a, b in zip(keys, keys[1:])]
+    suffixes = [keys[0]] + [k[p:] for k, p in zip(keys[1:], pre)]
+    return _varints(pre) + _varints(len(x) for x in suffixes), b"".join(suffixes)
+
+
+class Writer:
+    """A new single-version OCDBT database at ``root`` (a directory without
+    one). ``put(key, value)`` in any order; ``commit()`` writes the B+tree
+    and the manifest, without which nothing written is a database. As a
+    context manager it commits on a clean exit and closes the data file
+    either way."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self.data_file = f"d/{uuid.uuid4().hex}"
+        os.makedirs(os.path.join(root, "d"), exist_ok=True)
+        self._f = open(os.path.join(root, self.data_file), "xb")
+        self._offset = 0
+        self._entries: Dict[bytes, Union[bytes, Tuple[int, int]]] = {}
+
+    def __enter__(self) -> "Writer":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is None:
+            self.commit()
+        self._f.close()
+
+    def _append(self, blob) -> int:
+        offset = self._offset
+        self._f.write(blob)
+        self._offset += len(blob)
+        return offset
+
+    def put(self, key: Union[str, bytes], value) -> None:
+        """Store ``value`` (bytes-like) under ``key``: inline in its leaf up
+        to :data:`MAX_INLINE_VALUE_BYTES`, else in the data file now."""
+        key = key.encode() if isinstance(key, str) else bytes(key)
+        if key in self._entries:
+            raise ValueError(f"key {key!r} written twice")
+        n = memoryview(value).nbytes
+        self._entries[key] = (bytes(value) if n <= MAX_INLINE_VALUE_BYTES
+                              else (self._append(value), n))
+
+    def _table(self) -> bytes:
+        """The data file table of every node and of the manifest: this
+        database's one data file, base path empty."""
+        name = self.data_file.encode()
+        return _varint(1) + _varint(len(name)) + _varint(0) + name
+
+    def _node(self, height: int, body: bytes) -> Tuple[int, int]:
+        blob = _frame(NODE_MAGIC, bytes([height]) + self._table() + body)
+        return self._append(blob), len(blob)
+
+    def _leaf(self, keys: List[bytes]):
+        """A leaf node: its reference (first key, offset, length) and its
+        statistics (keys, tree bytes, indirect value bytes)."""
+        values = [self._entries[k] for k in keys]
+        inline = [v for v in values if isinstance(v, bytes)]
+        indirect = [v for v in values if not isinstance(v, bytes)]
+        body = (_varint(len(keys)) + b"".join(_prefixed(keys))
+                + _varints(len(v) if isinstance(v, bytes) else v[1] for v in values)
+                + _varints(0 if isinstance(v, bytes) else 1 for v in values)
+                + _varints(0 for _ in indirect) + _varints(v[0] for v in indirect)
+                + b"".join(inline))
+        offset, length = self._node(0, body)
+        return (keys[0], offset, length), (len(keys), length, sum(v[1] for v in indirect))
+
+    def _interior(self, height: int, children):
+        """An interior node over ``children`` ([(reference, statistics)]),
+        each child's keys stored whole (no common prefix taken out)."""
+        refs, stats = [c[0] for c in children], [c[1] for c in children]
+        lengths, suffixes = _prefixed([r[0] for r in refs])
+        body = (_varint(len(refs)) + lengths + _varints(0 for _ in refs) + suffixes
+                + _varints(0 for _ in refs) + _varints(r[1] for r in refs)
+                + _varints(r[2] for r in refs)
+                + b"".join(_varints(s[j] for s in stats) for j in range(3)))
+        offset, length = self._node(height, body)
+        return (refs[0][0], offset, length), (sum(s[0] for s in stats),
+                                              length + sum(s[1] for s in stats),
+                                              sum(s[2] for s in stats))
+
+    def commit(self) -> None:
+        """Write the B+tree over every key put, then ``manifest.ocdbt``."""
+        if not self._entries:
+            raise ValueError("an empty database is not written")
+        keys = sorted(self._entries)
+        inline = {k: len(v) for k, v in self._entries.items() if isinstance(v, bytes)}
+        nodes = [self._leaf(group) for group in _cut(keys, lambda k: len(k) + 8 + inline.get(k, 0))]
+        height = 0
+        while len(nodes) > 1:
+            height += 1
+            nodes = [self._interior(height, group) for group in _cut(
+                nodes, lambda node: len(node[0][0]) + 40)]
+        (_, offset, length), stats = nodes[0]
+        self._f.flush()
+        os.fsync(self._f.fileno())
+        body = (uuid.uuid4().bytes + _varint(0) + _varint(MAX_INLINE_VALUE_BYTES)
+                + _varint(MAX_DECODED_NODE_BYTES) + bytes([VERSION_TREE_ARITY_LOG2])
+                + _varint(ZSTD) + struct.pack("<i", 0) + self._table()
+                + _varint(1) + _varint(1) + bytes([height])  # one version, generation 1
+                + _varint(0) + _varint(offset) + _varint(length) + _varints(stats)
+                + struct.pack("<Q", time.time_ns()) + _varint(0))  # no version-tree nodes
+        path = os.path.join(self.root, "manifest.ocdbt")
+        with open(path + ".tmp", "wb") as f:
+            f.write(_frame(MANIFEST_MAGIC, body))
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(path + ".tmp", path)
+
+
+def _cut(items: list, size) -> List[list]:
+    """``items`` in runs whose ``size`` sums reach :data:`NODE_BYTES` (the
+    last run may be shorter; every run holds one item at least)."""
+    runs, run, total = [], [], 0
+    for item in items:
+        run.append(item)
+        total += size(item)
+        if total >= NODE_BYTES:
+            runs.append(run)
+            run, total = [], 0
+    return runs + ([run] if run else [])
+
+
+def _chunk_shape(shape: Tuple[int, ...], itemsize: int, max_bytes: int) -> Tuple[int, ...]:
+    """The whole array where it fits in ``max_bytes``, else its leading axes
+    cut (the first to a part of its length, those before it to 1) until a
+    chunk does, or holds one element of them."""
+    chunks = [max(1, d) for d in shape]  # an empty axis: a chunk of 1, none written
+    for ax in range(len(shape)):
+        if math.prod(chunks) * itemsize <= max_bytes:
+            break
+        chunks[ax] = max(1, min(shape[ax], max_bytes // (itemsize * math.prod(chunks[ax + 1:]))))
+    return tuple(chunks)
+
+
+def write_array(writer: Writer, name: str, arr: np.ndarray, dtype: str) -> None:
+    """``arr`` as the zarr v2 array ``name`` of ``writer``'s database, as
+    orbax writes one: ``.zarray`` (C order, zstd, no fill value), then every
+    chunk of at most :data:`CHUNK_BYTES`, an edge chunk padded with zeros. ``dtype`` is the zarr dtype
+    (``arr.dtype.str``, or ``"bfloat16"`` with ``arr`` its uint16 bits)."""
+    arr = np.asarray(arr)
+    arr = arr if arr.flags.c_contiguous else arr.copy(order="C")  # a 0-d array stays 0-d
+    shape = tuple(int(d) for d in arr.shape)
+    chunks = _chunk_shape(shape, arr.dtype.itemsize, CHUNK_BYTES)
+    meta = dict(chunks=list(chunks), compressor=dict(id="zstd", level=1),
+                dimension_separator=".", dtype=dtype, fill_value=None, filters=None,
+                order="C", shape=list(shape), zarr_format=2)
+    writer.put(f"{name}/.zarray", json.dumps(meta, sort_keys=True,
+                                             separators=(",", ":")).encode())
+    grid = [-(-s // c) for s, c in zip(shape, chunks)]
+    for idx in np.ndindex(*grid):
+        region = tuple(slice(i * c, min((i + 1) * c, s)) for i, c, s in zip(idx, chunks, shape))
+        part = arr[region]
+        if part.shape != chunks:
+            padded = np.zeros(chunks, dtype=arr.dtype)
+            padded[tuple(slice(0, d) for d in part.shape)] = part
+            part = padded
+        part = part if part.flags.c_contiguous else part.copy(order="C")
+        writer.put(f"{name}/{'.'.join(map(str, idx)) if shape else '0'}", zstd.compress(part))

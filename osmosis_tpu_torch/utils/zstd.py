@@ -1,4 +1,5 @@
-"""Zstandard decompression (RFC 8878) without the ``zstandard`` package.
+"""Zstandard (RFC 8878) without the ``zstandard`` package: a decoder, and
+an encoder of raw blocks.
 
 Orbax checkpoints compress their zarr chunks, and OCDBT its manifests and
 B-tree nodes, as zstd frames; the card's machine has no zstd module and
@@ -11,6 +12,11 @@ treeless literals, FSE, RLE, predefined and repeated sequence tables, the
 repeat offsets, skippable frames and the content checksum (XXH64), and both
 raise :class:`ZstdError` on a corrupt or truncated frame. Dictionaries are
 not supported (orbax writes none).
+
+:func:`compress` writes what the port's orbax writer stores: one frame of
+raw (type 0) blocks of at most 128 KiB with its content size, which every
+decoder reads; it compresses nothing, so it is a header and the data's
+slices joined once.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from typing import List, Optional, Tuple
 
 MAGIC = 0xFD2FB528
 _M64 = (1 << 64) - 1
+RAW_BLOCK = 128 * 1024  # the largest block a frame may hold
 
 
 class ZstdError(ValueError):
@@ -608,3 +615,21 @@ def decompress(data: bytes, size: Optional[int] = None) -> bytes:
 
     out = native.zstd_decompress(data, size)
     return decompress_py(data) if out is None else out
+
+
+def compress(data) -> bytes:
+    """``data`` as one zstd frame: a 128 KiB window, the content size in 4
+    bytes (8 from 4 GiB on), raw blocks of at most :data:`RAW_BLOCK` bytes,
+    no checksum."""
+    view = memoryview(data).cast("B")
+    n = len(view)
+    wide = n >= 1 << 32
+    parts = [struct.pack("<IBB", MAGIC, 0xC0 if wide else 0x80, 0x38),
+             struct.pack("<Q" if wide else "<I", n)]
+    i = 0
+    while True:
+        b = min(RAW_BLOCK, n - i)
+        parts += [struct.pack("<I", (b << 3) | (i + b == n))[:3], view[i:i + b]]
+        i += b
+        if i >= n:
+            return b"".join(parts)

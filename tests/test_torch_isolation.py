@@ -93,12 +93,25 @@ STANDALONE = {
     "osmosis_tpu_torch.parallel.tp": "assert callable(m.parallelize)",
     "osmosis_tpu_torch.tools.mesh_check": "assert callable(m.launch)",
     "osmosis_tpu_torch.utils.zstd":
-        "assert m.decompress_py(bytes.fromhex('28b52ffd2003190000') + b'abc') == b'abc'",
-    "osmosis_tpu_torch.utils.ocdbt": "assert m.crc32c(b'123456789') == 0xE3069283",
+        "assert m.decompress_py(bytes.fromhex('28b52ffd2003190000') + b'abc') == b'abc'\n"
+        "assert m.decompress(m.compress(b'abc')) == m.decompress_py(m.compress(b'abc')) == b'abc'",
+    "osmosis_tpu_torch.utils.ocdbt":
+        "import tempfile, numpy as np\n"
+        "assert m.crc32c(b'123456789') == m.crc32c_py(b'123456789') == 0xE3069283\n"
+        "d = tempfile.mkdtemp()\n"
+        "with m.Writer(d) as w:\n"
+        "    m.write_array(w, 'a', np.arange(5.0), '<f8')\n"
+        "assert m.read_array(m.Database(d), 'a')[0].tolist() == [0, 1, 2, 3, 4]",
     "osmosis_tpu_torch.models.convert":
-        "import os\n"
+        "import os, tempfile\n"
         "t = m.load_params_orbax(os.path.join('tests', 'data', 'orbax_tiny_unet'))\n"
-        "assert 'out_conv' in t['params']",
+        "assert 'out_conv' in t['params']\n"
+        "d = os.path.join(tempfile.mkdtemp(), 'ck')\n"
+        "m.save_params_orbax(t, d)\n"
+        "assert m.load_params_orbax(d)['params'].keys() == t['params'].keys()",
+    "osmosis_tpu_torch.diffusion.guided":
+        "from osmosis_tpu_torch.parallel.mesh import dp_sum\n"
+        "assert callable(m.guided_sample_loop) and callable(dp_sum)",
 }
 
 
@@ -106,8 +119,9 @@ STANDALONE = {
 def test_the_runbook_and_host_modules_stand_alone(module):
     """The runbook, seed_replicate, the determinism tool, the native host ops
     (built from the port's own source into the port's build dir), profiling,
-    perf, the mesh and its tensor-parallel layers, the mesh check, the zstd
-    decoder, the OCDBT reader and the orbax path of ``models/convert``: each
+    perf, the mesh and its tensor-parallel layers, the mesh check, the guided
+    loop with its dp reductions, the zstd codec, the OCDBT reader and writer
+    and the orbax paths of ``models/convert``: each
     imported and used alone loads nothing of JAX, the JAX package, the repo's
     tools, tensorstore or zstandard, and the tools drive only the port's
     tools."""

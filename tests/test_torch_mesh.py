@@ -16,7 +16,9 @@ process, on the CPU over gloo.
     noise fed through ``noise_fn`` at the tiny-chain bar, rtol 1e-3 / atol
     1e-4; the placements and the bytes each rank holds;
   - dp=2 and dp=2 x tp=2: the fleet runner at N=2 and N=4 against the
-    unsharded fleet at 5e-4.
+    unsharded fleet at 5e-4, and the joint-loss chain at the same batch
+    against one process at the whole batch (its UNet called on each rank's
+    share) at 5e-4 (tests/test_torch_joint_chain.py holds it against JAX).
 * ``shard_batch`` raises where dp does not divide the batch; NCCL ranks on
   one card raise.
 """
@@ -149,7 +151,8 @@ def test_layout_matches_jax_param_spec(kw):
 def tiny(tmp_path_factory):
     """The dryrun's tiny UNet (zero-initialized leaves drawn at 0.02) as a
     .msgpack, its JAX model and params, and inputs with JAX-drawn chain
-    noise."""
+    noise (at batch 1, and at each batch of lanes as the JAX chain draws it
+    for the whole batch)."""
     import jax
     import jax.numpy as jnp
 
@@ -171,14 +174,18 @@ def tiny(tmp_path_factory):
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
     x = f(1, 32, 32, 4)
     y = rng.uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32)
-    noise = np.stack([np.asarray(jax.random.normal(
-        jax.random.fold_in(jax.random.fold_in(key, t), 0), (1, 32, 32, 4), jnp.float32))
-        for t in range(STEPS)])
+    def jax_noise(batch):
+        return np.stack([np.asarray(jax.random.normal(
+            jax.random.fold_in(jax.random.fold_in(key, t), 0), (batch, 32, 32, 4), jnp.float32))
+            for t in range(STEPS)])
+
+    noise = jax_noise(1)
     inputs = {}
     for lanes in (2, 4):
         inputs[lanes] = str(tmp / f"inputs{lanes}.npz")
         np.savez(inputs[lanes], x=x, y=y, cot=f(1, 32, 32, 8), noise=noise, xs=f(lanes, 32, 32, 4),
-                 ys=rng.uniform(-1, 1, (lanes, 32, 32, 3)).astype(np.float32))
+                 ys=rng.uniform(-1, 1, (lanes, 32, 32, 3)).astype(np.float32),
+                 noises=jax_noise(lanes))
     return dict(ckpt=ckpt, model=model, params=params, key=key, x=x, y=y, inputs=inputs)
 
 
@@ -246,13 +253,19 @@ def test_sharded_fleets_match_one_process(tiny, tmp_path, ranks, meshes, lanes):
     assert [(r["dp_index"], r["tp_index"]) for r in rows] == [
         (k // int(meshes[-1]), k % int(meshes[-1])) for k in range(ranks)]
     for r in rows:
-        assert "fleet" in r["differences"]
+        assert set(r["differences"]) == {"joint", "fleet"}
         # and against the whole batch in one call, which mesh_check reports
         # beside its bar: within the bar too at the 2-step chain
-        for k, d in r["whole_batch_fleet_differences"].items():
-            assert d["max_abs"] < 5e-4, (k, d)
-        got = np.load(tmp_path / "run" / f"{meshes}_fleet_rank{r['rank']}.npz")
-        assert got["sample"].shape == (lanes, 32, 32, 4)  # every lane, on every rank
+        for check in ("joint", "fleet"):
+            for k, d in r[f"whole_batch_{check}_differences"].items():
+                assert d["max_abs"] < 5e-4, (check, k, d)
+            got = np.load(tmp_path / "run" / f"{meshes}_{check}_rank{r['rank']}.npz")
+            assert got["sample"].shape == (lanes, 32, 32, 4)  # every image, on every rank
+    # the joint chain's worst value, traced over every dp rank's images
+    edge = summary["edges"][meshes]
+    assert edge["max_abs"] == rows[0]["differences"]["joint"]["sample"]["max_abs"]
+    assert len(edge["index"]) == 4 and len(edge["steps"]) == FLEET_CHAIN[0]
+    assert all(abs(g) <= edge["gradient_clip"] * (1 + 1e-5) for g in edge["gradient"])
 
 
 def test_a_failed_mesh_raises_after_every_mesh_is_reported(tiny, tmp_path, monkeypatch):
@@ -274,14 +287,41 @@ def test_a_failed_mesh_raises_after_every_mesh_is_reported(tiny, tmp_path, monke
                 extra=("--perturb", "1e-7"))
     with open(tmp_path / "run" / "summary.json") as f:
         summary = json.load(f)
-    assert len(summary["failures"]) == 2 and set(summary["meshes"]) == {"2x1", "1x2"}
+    # two ranks of 2x1, each failing its joint chain and its fleet
+    assert len(summary["failures"]) == 4 and set(summary["meshes"]) == {"2x1", "1x2"}
     assert all(set(r["differences"]) == {"unet", "chain"} for r in summary["meshes"]["1x2"])
-    assert all("fleet" in r["differences"] for r in summary["meshes"]["2x1"])
+    assert all(set(r["differences"]) == {"joint", "fleet"} for r in summary["meshes"]["2x1"])
     cond = summary["conditioning"]
-    assert set(cond) == {"unet", "chain", "fleet", "fleet/2"}
+    assert set(cond) == {"unet", "chain", "joint", "joint/2", "fleet", "fleet/2"}
     assert 0 < cond["unet"]["out"]["max_abs"] < 1e-6
-    assert max(d["max_abs"] for c in ("chain", "fleet", "fleet/2")
+    assert max(d["max_abs"] for c in ("chain", "joint", "joint/2", "fleet", "fleet/2")
                for d in cond[c].values()) < 5e-5
+
+
+def test_edge_report_finds_the_clamp_flip_near_the_worst_value():
+    from osmosis_tpu_torch.tools.mesh_check import TRACE, chain_parts, edge_report
+
+    rng = np.random.default_rng(0)
+    ref = {"sample": rng.uniform(-1, 1, (2, 8, 8, 4)).astype(np.float32),
+           TRACE + "x0_pre": rng.uniform(-0.9, 0.9, (2, 2, 8, 8, 4)).astype(np.float32),
+           TRACE + "guidance": np.full((2, 8, 8, 4), 0.035, np.float32)}
+    got = {k: v.copy() for k, v in ref.items()}
+    got["sample"][1, 3, 5, 2] += 2e-3
+    got[TRACE + "guidance"][1, 3, 5, 2] -= 2e-3
+    # at the last step the clamp takes one element in one run and not the
+    # other: one pixel from the worst value, and one in the other image
+    for b, y, x in ((1, 3, 6), (0, 7, 7)):
+        ref[TRACE + "x0_pre"][1, b, y, x, 2] = 0.9999999
+        got[TRACE + "x0_pre"][1, b, y, x, 2] = 1.0000001
+    rep = edge_report(ref, got, chain_parts()[3])  # scale 7,7,7,0.9, gradient clip 0.005
+    assert rep["index"] == [1, 3, 5, 2]
+    assert rep["max_abs"] == pytest.approx(2e-3, rel=1e-3)
+    assert rep["gradient"] == pytest.approx([0.005, 0.033 / 7], rel=1e-5)
+    assert [s["clamp_flips"] for s in rep["steps"]] == [0, 2]
+    assert rep["steps"][0]["nearest_flip"] is None
+    assert rep["steps"][1]["nearest_flip"] == [1, 3, 6, 2]
+    assert rep["steps"][1]["nearest_flip_pixels"] == 1
+    assert rep["steps"][1]["x0_pre"] == [float(ref[TRACE + "x0_pre"][1, 1, 3, 5, 2])] * 2
 
 
 def test_four_step_chain_conditioning(tiny):
