@@ -2276,7 +2276,9 @@ def run_mesh(workdir, checkpoint, gn_sites, ups, pools):
     at batch 2, its loss reduced over dp, and the fleet runner at N=2, both
     with ``mesh=``), each rank against the one-process run of the same
     check in this process at rtol/atol 5e-4 (1e-3 on the loss trace; under
-    dp the one process calls its UNet on each rank's images); each rank's
+    dp the one process calls its UNet on each rank's images) with
+    ``mesh_check``'s clamp-flip excuse, whose counts :func:`log_bar` prints;
+    each rank's peak beside the one process's at the rank's batch; each rank's
     K1-K4 launches equal the one process's (tp: every rank runs every site;
     dp: the launches of its own images, the same count at any batch); under
     tp=2 a rank holds the replicated bytes and half the sharded ones. Then
@@ -2326,15 +2328,22 @@ def run_mesh(workdir, checkpoint, gn_sites, ups, pools):
             whole = "; ".join(f"{check} " + ", ".join(
                 f"{k} {d['max_abs']:.2e}" for k, d in r[f"whole_batch_{check}_differences"].items())
                 for check in r["differences"] if f"whole_batch_{check}_differences" in r)
+            dp = r["mesh"]["dp"]
+            alone = {c: (ref[c]["peak_bytes"] if dp == 1 else
+                         max(ref[f"fleet/{dp}"]["group_peak_bytes"])) - held for c in r["checks"]}
             log(f"  mesh {mesh_name} rank {r['rank']}: parameters {r['local_parameter_bytes'] / 2 ** 30:.3f}"
                 f" of {r['full_parameter_bytes'] / 2 ** 30:.3f} GiB; peaks "
-                f"{ {c: round(v['peak_bytes'] / 2 ** 30, 2) for c, v in r['checks'].items()} } GiB;"
+                f"{ {c: round(v['peak_bytes'] / 2 ** 30, 2) for c, v in r['checks'].items()} } GiB "
+                f"(one process at the rank's batch: "
+                f"{ {c: round(v / 2 ** 30, 2) for c, v in alone.items()} } GiB);"
                 f" seconds { {c: round(v['seconds'], 2) for c, v in r['checks'].items()} }; "
                 f"launches {r['checks'][next(iter(r['checks']))]['launches']}; max abs / rel "
                 f"differences from one process: {diffs}"
                 + (f"; max abs from the whole batch in one call (reported): {whole}" if whole
                    else ""))
         out["meshes"][mesh_name] = rows
+    out["bar"] = summary["bar"]
+    log_bar(summary["bar"])
     log(f"  one process: seconds { {c: round(v['seconds'], 2) for c, v in ref.items()} }, peaks "
         f"{ {c: round((v['peak_bytes'] - held) / 2 ** 30, 2) for c, v in ref.items()} } GiB "
         f"(above the {held / 2 ** 30:.2f} GiB it held before); the ranks "
@@ -2365,6 +2374,25 @@ def run_mesh(workdir, checkpoint, gn_sites, ups, pools):
     del model
     out["orbax_full_width"] = orbax_full_width(workdir, checkpoint)
     return out
+
+
+def log_bar(bar):
+    """One line for each mesh and chain check of ``tools.mesh_check``'s
+    excuse (``summary["bar"]``): the UNet's measured relative difference,
+    the EPS of the perturbed one-process runs and what they moved (run only
+    where a value is to be excused), and each
+    rank's clamp flips, sample values past 5e-4, excused values and x0-hat
+    values past 5e-4 (never excused)."""
+    for mesh_name, checks in bar.items():
+        for check, b in checks.items():
+            moved = "not run, nothing to excuse" if b["perturbed"] is None else "; ".join(
+                f"{p['clamp_flips']} flips, {p['sample_misses']} misses, {p['sample_max_abs']:.2e}"
+                for p in b["perturbed"])
+            ranks = ", ".join(f"rank {k}: {r['clamp_flips']} flips, {r['sample_misses']} misses, "
+                              f"{r['excused']} excused, x0-hat {r['x0_misses']} misses"
+                              for k, r in b["ranks"].items())
+            log(f"  bar {mesh_name} {check}: UNet {b['measured']:.2e} relative, EPS {b['eps']:.1e}"
+                f" (perturbed runs: {moved}); {ranks}")
 
 
 def orbax_full_width(workdir, checkpoint):

@@ -20,16 +20,18 @@ import os
 import torch
 
 
-def seeded_checkpoint(path: str) -> int:
-    """The seeded random-init preset UNet as a ``.pt``; returns its size in
+def seeded_checkpoint(path: str, cfg=None) -> int:
+    """The seeded random-init UNet of ``cfg`` (default: the preset's) as a
+    ``.pt``, its zero-initialized leaves drawn at 0.02; returns its size in
     parameters."""
     from ..config import load_yaml
     from ..models.convert import init_unet
     from ..models.unet import unet_config_from_yaml
     from .real_weights_runbook import CONFIGS
 
-    cfg = unet_config_from_yaml(load_yaml(os.path.join(
-        CONFIGS, "osmosis_sample_config.yaml"))["unet_model"])
+    if cfg is None:
+        cfg = unet_config_from_yaml(load_yaml(os.path.join(
+            CONFIGS, "osmosis_sample_config.yaml"))["unet_model"])
     model = init_unet(cfg, seed=0)
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():

@@ -19,6 +19,7 @@ process, on the CPU over gloo.
     unsharded fleet at 5e-4, and the joint-loss chain at the same batch
     against one process at the whole batch (its UNet called on each rank's
     share) at 5e-4 (tests/test_torch_joint_chain.py holds it against JAX).
+  mesh_check's clamp-flip excuse finds nothing to excuse on any of these.
 * ``shard_batch`` raises where dp does not divide the batch; NCCL ranks on
   one card raise.
 """
@@ -198,8 +199,19 @@ def _launch(tiny, tmp_path, ranks, meshes, lanes, budget, chain=(STEPS, N_ITER, 
         "--steps", str(chain[0]), "--n-iter", str(chain[1]), "--update-start", str(chain[2]),
         "--lanes", str(lanes), "--inputs", tiny["inputs"][lanes], *extra])
     t0 = time.time()
-    summary = mesh_check.launch(args, timeout=budget)  # raises past the 5e-4 bar
+    summary = mesh_check.launch(args, timeout=budget)  # raises on what the bar does not excuse
     assert time.time() - t0 < budget
+    # and these tiny meshes hold 5e-4 outright: the bar excuses nothing here
+    assert set(summary["bar"]) == set(meshes.split(","))
+    for mesh, checks in summary["bar"].items():
+        assert set(checks) == set(mesh_check.checks_of(mesh)) - {"unet"}, (mesh, checks)
+        for check, bar in checks.items():
+            assert len(bar["ranks"]) == ranks, (mesh, check, bar)
+            assert all(r["excused"] == 0 for r in bar["ranks"].values()), (mesh, check, bar)
+            assert bar["perturbed"] is None, (mesh, check, bar)  # run only to excuse a value
+    for mesh, reps in summary["meshes"].items():
+        for r in reps:
+            assert all(v["excused"] == [] for v in r["bar"].values()), (mesh, r["rank"])
     return summary
 
 
@@ -274,14 +286,13 @@ def test_a_failed_mesh_raises_after_every_mesh_is_reported(tiny, tmp_path, monke
     each one-process check moves when the UNet's output moves by 1e-7."""
     from osmosis_tpu_torch.tools import mesh_check
 
-    real = mesh_check.compare
+    real = mesh_check.judge
 
-    def strict(ref, got, what):
-        if what.startswith("mesh 2x1 "):
-            raise AssertionError(f"{what}: forced")
-        return real(ref, got, what)
+    def strict(ref, got, what, bar=None):
+        verdict, faults = real(ref, got, what, bar)
+        return verdict, faults + [f"{what}: forced"] * what.startswith("mesh 2x1 ")
 
-    monkeypatch.setattr(mesh_check, "compare", strict)
+    monkeypatch.setattr(mesh_check, "judge", strict)
     with pytest.raises(AssertionError, match="forced"):
         _launch(tiny, tmp_path, 2, "2x1,1x2", 2, budget=150, chain=FLEET_CHAIN,
                 extra=("--perturb", "1e-7"))
