@@ -335,11 +335,13 @@ def check_norm_kernels(gn_sites, report, k_hybrid, batch=1, suffix=""):
             gy = rnd(batch, c, h, w).contiguous(memory_format=torch.channels_last)
             tag = f"group_norm B={batch} C={c} {h}x{w} {mode} {dn}"
 
-            k0 = (G.group_norm_forward.kernel_launches, G.group_norm_backward.kernel_launches)
+            c0 = counters()
+            k0 = (c0["group_norm_forward.kernel_launches"],
+                  c0["group_norm_backward.kernel_launches"])
             y, m, i = G.group_norm_forward(x, wgt, bias, fs, ft, silu)
-            k1 = G.group_norm_forward.kernel_launches
+            k1 = counters()["group_norm_forward.kernel_launches"]
             grads = G.group_norm_backward(gy, x, wgt, bias, fs, ft, silu, m, i)
-            k2 = G.group_norm_backward.kernel_launches
+            k2 = counters()["group_norm_backward.kernel_launches"]
             yp, mp, ip = G.group_norm_forward_plain(x, wgt, bias, fs, ft, silu)
             gradsp = G.group_norm_backward_plain(gy, x, wgt, bias, fs, ft, silu, mp, ip)
             # a second call of each, and the backward without the parameter
@@ -497,8 +499,6 @@ def check_tiny_unet():
 
     from osmosis_tpu_torch.models.convert import init_unet
     from osmosis_tpu_torch.models.unet import UNetConfig
-    from osmosis_tpu_torch.ops import group_norm as G
-    from osmosis_tpu_torch.ops import upsample as U
 
     cfg = UNetConfig(image_size=32, model_channels=64, num_res_blocks=1,
                      attention_resolutions=(4,), channel_mult=(1, 2, 2), num_heads=4,
@@ -513,15 +513,13 @@ def check_tiny_unet():
     t = torch.tensor([17.0, 433.0])
     g = torch.randn(2, 32, 32, 8, generator=gen)
     outs = []
-    before = (U.upsample_nearest_2x_kernel.launches, U.box_sum_2x_kernel.launches,
-              G.group_norm_forward.launches, G.group_norm_backward.launches)
+    before = tuple(read_counts().values())
     for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
         xd = x.to(dev).requires_grad_(True)
         y = model(xd, t.to(dev))
         (dx,) = torch.autograd.grad(y, xd, g.to(dev))
         outs.append((y.detach().cpu(), dx.cpu()))
-    after = (U.upsample_nearest_2x_kernel.launches, U.box_sum_2x_kernel.launches,
-             G.group_norm_forward.launches, G.group_norm_backward.launches)
+    after = tuple(read_counts().values())
     if not all(a > b for a, b in zip(after, before)):
         raise AssertionError(f"tiny UNet on the card did not launch every kernel: {before} -> {after}")
     errs = []
@@ -539,26 +537,26 @@ def check_tiny_unet():
 # shared by the full-width phases
 # ---------------------------------------------------------------------------
 
-def kernel_counters():
-    from osmosis_tpu_torch.ops import group_norm as G
-    from osmosis_tpu_torch.ops import upsample as U
+KERNELS = ("upsample_nearest_2x", "box_sum_2x", "group_norm_forward", "group_norm_backward")
 
-    return {"upsample_nearest_2x": U.upsample_nearest_2x_kernel,
-            "box_sum_2x": U.box_sum_2x_kernel,
-            "group_norm_forward": G.group_norm_forward,
-            "group_norm_backward": G.group_norm_backward}
+
+def counters():
+    from osmosis_tpu_torch.utils import profiling
+
+    return profiling.counters()
 
 
 def zero_counts():
-    from osmosis_tpu_torch.ops import group_norm as G
+    from osmosis_tpu_torch.utils import profiling
 
-    for fn in kernel_counters().values():
-        fn.launches = 0
-    G.group_norm_forward.kernel_launches = G.group_norm_backward.kernel_launches = 0
+    profiling.reset_counters(*(f"{k}.launches" for k in KERNELS),
+                             "group_norm_forward.kernel_launches",
+                             "group_norm_backward.kernel_launches")
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in kernel_counters().items()}
+    c = counters()
+    return {name: c[f"{name}.launches"] for name in KERNELS}
 
 
 def check_counts(what, got, expected):
@@ -657,7 +655,6 @@ def run_main_path(workdir):
 
     from osmosis_tpu_torch.config import load_yaml
     from osmosis_tpu_torch.models.unet import unet_config_from_yaml
-    from osmosis_tpu_torch.ops import group_norm as G
     from osmosis_tpu_torch.pipelines.restore import run_restoration
     from osmosis_tpu_torch.tools.runbook_rehearsal import seeded_checkpoint
 
@@ -678,8 +675,8 @@ def run_main_path(workdir):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts()
-    gn_kernels = {"group_norm_forward": G.group_norm_forward.kernel_launches,
-                  "group_norm_backward": G.group_norm_backward.kernel_launches}
+    gn_kernels = {k: counters()[f"{k}.kernel_launches"]
+                  for k in ("group_norm_forward", "group_norm_backward")}
     peak = torch.cuda.max_memory_allocated()
     log(f"  run_restoration: {wall:.1f} s, run dir {out}")
     log(f"  launches on the main path: {launches}; GroupNorm device kernels: {gn_kernels}")
@@ -1430,8 +1427,8 @@ def run_training(n_params_preset, gn_sites, ups, pools):
 
     import torch
 
-    from osmosis_tpu_torch.ops import group_norm as G
     from osmosis_tpu_torch.tools import train_toy_prior as P
+    from osmosis_tpu_torch.utils import profiling
 
     args = P.build_parser().parse_args(["--arch", "production", "--size", "256", "--channels",
                                         "256", "--batch", str(TRAIN_BATCH)])
@@ -1449,13 +1446,15 @@ def run_training(n_params_preset, gn_sites, ups, pools):
         tr.step()
     torch.cuda.synchronize()
     zero_counts()
-    G.group_norm_backward.param_sum_launches = G.group_norm_backward.film_sum_launches = 0
+    profiling.reset_counters("group_norm_backward.param_sum_launches",
+                             "group_norm_backward.film_sum_launches")
     t0 = time.perf_counter()
     losses = torch.stack([tr.step() for _ in range(TRAIN_TIMED)])
     torch.cuda.synchronize()
     s = (time.perf_counter() - t0) / TRAIN_TIMED
     launches = read_counts()
-    sums = (G.group_norm_backward.param_sum_launches, G.group_norm_backward.film_sum_launches)
+    c = counters()
+    sums = (c["group_norm_backward.param_sum_launches"], c["group_norm_backward.film_sum_launches"])
     peak = torch.cuda.max_memory_allocated()
     check_counts("train steps", launches, train_counts(gn_sites, ups, pools, TRAIN_TIMED))
     if sums != (len(gn_sites) * TRAIN_TIMED, film * TRAIN_TIMED):

@@ -49,6 +49,13 @@ sums, the means over the global element count). The per-image results are
 all-gathered in image order at the end, so every rank returns what one
 process returns for the whole batch, up to the order of the reductions' sums.
 A tensor-parallel model (``mesh.shard_params``) runs under it as it is.
+
+Under ``utils/profiling.tracing()`` a call is a ``guided.segment`` span,
+each step a ``guided.step`` span holding the UNet's ``unet.forward`` and
+the step's ``guided.phi_fit`` (the warm phase and the phi-only iterations),
+``guided.joint_grad`` and, on x_prev steps, ``guided.pullback``. The
+counters ``guided.steps``, ``guided.x_prev_steps`` (steps that pulled back
+through the UNet) and ``guided.phi_iters`` (every phi update) always count.
 """
 
 from __future__ import annotations
@@ -66,6 +73,7 @@ from ..guidance.phi_optim import make_phi_optimizer
 from ..guidance.schedule_masks import pattern_masks
 from ..parallel.mesh import dp_mean, dp_sum, gather_batch, shard_batch
 from ..registry import CONDITIONERS
+from ..utils import profiling
 from .sampler import (
     ModelFn,
     SamplerConfig,
@@ -293,261 +301,281 @@ def guided_sample_loop(
     its whole-batch arguments, and gets the whole result back.
     """
     T = schedule.num_timesteps
-    device = x_init.device
-    n = x_init.shape[0]
-    sharded = mesh is not None and mesh.dp > 1
-    if sharded:
-        x_init, measurement = shard_batch(x_init, mesh), shard_batch(measurement, mesh)
-    B = x_init.shape[0]
-    rows = lambda a, dim=0: a.narrow(dim, mesh.index("dp") * B, B)  # noqa: E731
-    masks = pattern_masks(sample_pattern, T)
-    always_guided = bool(masks["guidance"].all())
-    never_alternates = bool((masks["alternate_len"] == 1).all())
-    _check_config(gcfg, scfg, T, never_alternates)
-    ps = gcfg.method == "ps"
-    ltsp = scfg.sampler == "ltsp"
-    if not deterministic and noise_fn is None:
-        if seed is None:
-            raise ValueError("a stochastic chain needs a seed or a noise_fn")
-        noise_fn = keyed_noise_fn(seed, device, x_init.dtype)
-    if sharded and noise_fn is not None:  # drawn for the whole batch: an image's noise is its own
-        whole = noise_fn
-        noise_fn = lambda t, shape, *i: rows(whole(t, (n,) + tuple(shape[1:]), *i))  # noqa: E731
-
-    def draw(t, shape, i):
-        return noise_fn(t, shape) if i == 0 else noise_fn(t, shape, i)
-
-    consts = device_constants(schedule, device)
-    aux_fn = make_aux_loss_fn(dict(gcfg.aux_loss))
-    aux_names = [k for k, _ in gcfg.aux_loss]
-    zero_aux = {k: torch.zeros((B,) if lane_separable else (), device=device)
-                for k in aux_names}
-    weight_fn = _make_weight_fn(gcfg)
-    scale = torch.tensor(gcfg.scale, dtype=torch.float32, device=device)
-    scale = scale[0] if scale.numel() == 1 else scale.reshape(1, 1, 1, -1)
-
-    src = phi_init if phi_init is not None else operator.phi_init()
-    phi = {k: torch.as_tensor(v, dtype=torch.float32, device=device) for k, v in src.items()}
-    if sharded:
-        phi, opt_state_init, eps_hist_init = (
-            None if v is None else map_tensors(rows, v) for v in (phi, opt_state_init, eps_hist_init))
-        x0_buf_init = None if x0_buf_init is None else rows(torch.as_tensor(x0_buf_init), 1)
-    opt = make_phi_optimizer(operator.optimizer, operator.etas())
-    opt_state = opt_state_init if opt_state_init is not None else opt.init(phi)
-    if eta_scale is not None:
-        # every phi step times a scalar: p + s·(p' − p), as the JAX loop does
-        # (guided.py:288-305); the optimizer state evolves as without it
-        s_eta = torch.tensor(float(eta_scale), dtype=torch.float32, device=device)
-        base_update = opt.update
-
-        def scaled_update(phi_, g_, st_):
-            new, st2 = base_update(phi_, g_, st_)
-            return {k: phi_[k] + s_eta * (new[k] - phi_[k]) for k in phi_}, st2
-
-        opt = dataclasses.replace(opt, update=scaled_update)
-    y = measurement
-    # the batch-wide reductions of the joint loss span every dp rank's images
-    red = (lambda t: t) if lane_separable else (lambda t: dp_sum(t, mesh))  # noqa: E731
-
-    def loss_terms(x0, phi_):
-        degraded = 2.0 * operator.forward(phi_, x0) - 1.0
-        diff = ((y - degraded) * weight_fn(x0)).float()
-        if gcfg.loss_function == "norm":
-            sep = torch.sqrt(torch.sum(diff ** 2, dim=(1, 2, 3)))
-            loss = torch.sum(sep) if lane_separable else torch.sqrt(red(torch.sum(diff ** 2)))
-        else:
-            sep = torch.mean(diff ** 2, dim=(1, 2, 3))
-            loss = red(torch.sum(sep))
-        aux = {}
-        if aux_fn is not None:
-            aux_total, aux = aux_fn(x0, per_lane=lane_separable, mesh=mesh)
-            loss = loss + aux_total
-        return loss, sep, aux
-
-    def grads(x0, phi_, wrt_x0: bool):
-        """Gradient of the guidance loss w.r.t. phi (and x0-hat), at leaves."""
-        leaves = {k: v.detach().requires_grad_(True) for k, v in phi_.items()}
-        x0_leaf = x0.detach().requires_grad_(wrt_x0)
-        with torch.enable_grad():
-            total, sep, aux = loss_terms(x0_leaf, leaves)
-            wrt = ([x0_leaf] if wrt_x0 else []) + list(leaves.values())
-            gs = torch.autograd.grad(total, wrt) if wrt else ()
-        g_x0 = gs[0] if wrt_x0 else None
-        g_phi = dict(zip(leaves, gs[1:] if wrt_x0 else gs))
-        return g_x0, g_phi, sep.detach(), {k: aux[k].detach() for k in aux_names}
-
-    def ps_loss_grad(x0):
-        """condition_methods.py:35-53: the loss ([B] per image with
-        ``lane_separable``, else one value for the batch) and the x0-hat
-        gradient of its sum."""
-        x0_leaf = x0.detach().requires_grad_(True)
-        dims = (1, 2, 3)
-        with torch.enable_grad():
-            if gcfg.noiser_name == "gaussian":  # ‖y − A(x0[..., :3])‖
-                diff = (y - operator.forward({}, x0_leaf[..., 0:3])).float()
-                loss = (torch.sqrt(torch.sum(diff ** 2, dim=dims)) if lane_separable
-                        else torch.sqrt(red(torch.sum(diff ** 2))))
-            else:  # poisson: over the FULL x0, no RGB slice (condition_methods.py:43-48)
-                diff = (y - operator.forward({}, x0_leaf)).float()
-                if lane_separable:
-                    norm = torch.sqrt(torch.sum(diff ** 2, dim=dims)).reshape(-1, 1, 1, 1)
-                    loss = torch.mean(norm / torch.abs(y.float()), dim=dims)
-                else:  # mean(norm / |y|) as norm * mean(1 / |y|): every rank then uses
-                    # the reduced norm alike, which dp_sum's identity backward needs
-                    norm = torch.sqrt(red(torch.sum(diff ** 2)))
-                    loss = norm * dp_mean(1.0 / torch.abs(y.float()), mesh)
-            (g_x0,) = torch.autograd.grad(loss.sum(), x0_leaf)
-        return loss.detach(), g_x0
-
-    def unet_x0(x, tb, use_x_prev):
-        """x0-hat and the variance channels; with ``use_x_prev`` also the
-        autograd leaf x and the graph of x0-hat over it (the pullback)."""
-        xg = x.detach().requires_grad_(use_x_prev)
-        with torch.set_grad_enabled(use_x_prev):
-            eps, v = split_model_output(model_fn(xg, consts["model_timesteps"][tb]), x.shape[-1])
-            x0_graph = process_xstart(predict_xstart(xg, tb, eps, consts, scfg), scfg)
-        return xg, x0_graph, v.detach()
-
-    def pullback(xg, x0_graph, g_x0):
-        """The one pullback through the UNet: the cotangent of x0-hat alone,
-        i.e. a zero cotangent for the variance channels."""
-        (g_x,) = torch.autograd.grad(x0_graph, xg, g_x0)
-        return g_x
-
-    def osmosis_guided(x, phi_, st, t, tb, use_x_prev):
-        xg, x0_graph, v = unet_x0(x, tb, use_x_prev)
-        x0 = x0_graph.detach()
-        logvar = model_log_variance(v, tb, consts, scfg)
-        mean = posterior_mean(x0, x, tb, consts)
-        freeze = bool(masks["freeze_phi"][t])
-        # the phi warm phase, then the inner phi-only iterations
-        # (condition_methods.py:193-194)
-        n_inner = int(masks["phi_warmup"][t]) + (0 if freeze else gcfg.n_iter - 1)
-        for _ in range(n_inner):
-            _, g_phi, _, _ = grads(x0, phi_, wrt_x0=False)
-            phi_, st = opt.update(phi_, g_phi, st)
-        g_x0, g_phi, sep, aux_vec = grads(x0, phi_, wrt_x0=True)
-        if not freeze:
-            phi_, st = opt.update(phi_, g_phi, st)
-        if use_x_prev:
-            g_used = pullback(xg, x0_graph, g_x0)
-            if gcfg.gradient_clip:
-                g_used = torch.clamp(g_used, -gcfg.gradient_clip_value, gcfg.gradient_clip_value)
-        else:  # the x0-hat gradient, never clipped (condition_methods.py:227-229)
-            g_used = g_x0
-        guidance = scale * g_used
-        return mean - guidance, logvar, x0, guidance, phi_, st, sep, aux_vec
-
-    def plain_update(x, phi_, st, t, tb):
-        with torch.no_grad():
-            out = p_mean_variance(model_fn, x, tb, consts, scfg)
-        return (out["mean"], out["log_variance"], out["pred_xstart"], torch.zeros_like(x),
-                phi_, st, torch.zeros((B,), device=device), zero_aux)
-
-    def ps_step(x, t, tb, i, use_x_prev):
-        xg, x0_graph, v = unet_x0(x, tb, use_x_prev)
-        x0 = x0_graph.detach()
-        out = {"mean": posterior_mean(x0, x, tb, consts),
-               "log_variance": model_log_variance(v, tb, consts, scfg), "pred_xstart": x0}
-        # noise FIRST (p_sample, gaussian_diffusion.py:232-233,494-502)
-        if deterministic:
-            sample = out["mean"]
-        elif scfg.sampler == "ddim":
-            sample = ddim_step(x, out, tb, draw(t, tuple(x.shape), i), consts, scfg.ddim_eta)
-        else:
-            sample = ddpm_noise_step(out, tb, draw(t, tuple(x.shape), i))
-        loss, g_x0 = ps_loss_grad(x0)
-        g_used = pullback(xg, x0_graph, g_x0) if use_x_prev else g_x0
-        return sample - scale * g_used, x0, loss.expand(B) if loss.dim() == 0 else loss
-
-    if ltsp:
-        plms = torch.from_numpy(_plms_coeffs(T)).to(device)
-        if eps_hist_init is not None:
-            eps_hist = tuple(torch.as_tensor(e, device=device) for e in eps_hist_init)
-        else:
-            eps_hist = tuple(torch.zeros_like(x_init) for _ in range(3))
-
-    def one_iteration(x, phi_, st, t, tb, i, use_x_prev):
-        """One update at t: (x_next, phi, opt state, x0-hat, sep, aux, eps_t)."""
-        if ps:
-            x_next, x0, sep = ps_step(x, t, tb, i, use_x_prev)
-            return x_next, phi_, st, x0, sep, zero_aux, None
-        if always_guided or masks["guidance"][t]:
-            upd = osmosis_guided(x, phi_, st, t, tb, use_x_prev)
-        else:
-            upd = plain_update(x, phi_, st, t, tb)
-        x_t, logvar, x0, guidance, phi_, st, sep, aux_vec = upd
-        if ltsp:
-            # Lie-Trotter split: (a) the PLMS / DDIM(eta=0) diffusion substep
-            # on eps, (b) the first-order guidance substep
-            sra = consts["sqrt_recip_alphas_cumprod"][tb].reshape(-1, 1, 1, 1)
-            srm1 = consts["sqrt_recipm1_alphas_cumprod"][tb].reshape(-1, 1, 1, 1)
-            ab_prev = consts["alphas_cumprod_prev"][tb].reshape(-1, 1, 1, 1)
-            eps_t = (sra * x - x0) / srm1
-            eps_eff = torch.tensordot(plms[t], torch.stack((eps_t,) + eps_hist), dims=1)
-            x0_eff = sra * x - srm1 * eps_eff
-            x_diff = torch.sqrt(ab_prev) * x0_eff + torch.sqrt(1.0 - ab_prev) * eps_eff
-            return x_diff - guidance, phi_, st, x0, sep, aux_vec, eps_t
-        # noise AFTER guidance (gaussian_diffusion.py:266-268)
-        if not (deterministic or t == 0):
-            x_t = x_t + torch.exp(0.5 * logvar) * draw(t, tuple(x_t.shape), i)
-        return x_t, phi_, st, x0, sep, aux_vec, None
-
-    if record_every is not None:
-        rec_steps = record_steps_for(T, record_every, extra=(T - 1, 999))
-        slot_map = make_slot_map(T, rec_steps)
-        if x0_buf_init is not None:  # a segment: earlier segments' snapshots carry on
-            buf_x0 = torch.as_tensor(x0_buf_init, device=device).clone()
-        else:
-            buf_x0 = torch.zeros((len(rec_steps),) + tuple(x_init.shape), dtype=x_init.dtype,
-                                 device=device)
-    else:
-        rec_steps, slot_map, buf_x0 = (), None, None
-
-    # 'ps' always takes the x_prev gradient (condition_methods.py:40); the
-    # hybrid schedule takes it at chain positions 0, k, 2k, ... only: the JAX
-    # loop's [T // k, k] blocks, each starting with the full step, and the
-    # remainder block too
-    full_grad = ps or gcfg.gradient_x_prev
-    every = gcfg.x_prev_every if _hybrid(gcfg) else 1
-    seps, phis, auxs, stds = [], [], [], []
-    x = x_init.detach()
-    x0 = torch.zeros_like(x)
     steps = range(T - 1, -1, -1) if ts is None else [int(t) for t in ts]
-    for s, t in enumerate(steps):
-        tb = torch.full((B,), t, dtype=torch.long, device=device)
-        use_x_prev = full_grad and s % every == 0
-        sep, aux_vec = torch.zeros((B,), device=device), zero_aux
-        for i in range(1 if never_alternates else int(masks["alternate_len"][t])):
-            x, phi, opt_state, x0, sep, aux_vec, eps_t = one_iteration(
-                x, phi, opt_state, t, tb, i, use_x_prev)
-            if ltsp:
-                eps_hist = (eps_t, eps_hist[0], eps_hist[1])
-        x = x.detach()
-        if slot_map is not None:
-            record_update(buf_x0, x0, int(slot_map[t]))
-        seps.append(sep)
-        phis.append(phi)
-        auxs.append(aux_vec)
-        stds.append(x0.float().reshape(B, -1).std(dim=1, unbiased=False))
-        if progress_every and t % progress_every == 0:
-            vals = {k: np.round(v[0].detach().cpu().numpy(), 3).tolist() for k, v in phi.items()}
-            print(f"  t={t:4d} loss={float(sep[0]):.3f} {vals}", flush=True)
+    with profiling.span("guided.segment", steps=len(steps), lanes=x_init.shape[0],
+                        t_first=steps[0], t_last=steps[-1]):
+        device = x_init.device
+        n = x_init.shape[0]
+        sharded = mesh is not None and mesh.dp > 1
+        if sharded:
+            x_init, measurement = shard_batch(x_init, mesh), shard_batch(measurement, mesh)
+        B = x_init.shape[0]
+        rows = lambda a, dim=0: a.narrow(dim, mesh.index("dp") * B, B)  # noqa: E731
+        masks = pattern_masks(sample_pattern, T)
+        always_guided = bool(masks["guidance"].all())
+        never_alternates = bool((masks["alternate_len"] == 1).all())
+        _check_config(gcfg, scfg, T, never_alternates)
+        ps = gcfg.method == "ps"
+        ltsp = scfg.sampler == "ltsp"
+        if not deterministic and noise_fn is None:
+            if seed is None:
+                raise ValueError("a stochastic chain needs a seed or a noise_fn")
+            noise_fn = keyed_noise_fn(seed, device, x_init.dtype)
+        if sharded and noise_fn is not None:
+            # drawn for the whole batch: an image's noise is its own
+            whole = noise_fn
+            noise_fn = lambda t, shape, *i: rows(  # noqa: E731
+                whole(t, (n,) + tuple(shape[1:]), *i))
 
-    res = GuidedResult(
-        sample=x,
-        pred_xstart=x0,
-        phi=phi,
-        sep_loss=torch.stack(seps),
-        phi_trace={k: torch.stack([p[k] for p in phis]) for k in phi},
-        aux_trace={k: torch.stack([a[k] for a in auxs]) for k in aux_names},
-        x0_std_trace=torch.stack(stds),
-        opt_state=opt_state,
-        x0_snapshots=buf_x0,
-        eps_hist=eps_hist if ltsp else None,
-        snapshot_steps=tuple(rec_steps),
-    )
-    return _gather_images(res, mesh, lane_separable) if sharded else res
+        def draw(t, shape, i):
+            return noise_fn(t, shape) if i == 0 else noise_fn(t, shape, i)
+
+        consts = device_constants(schedule, device)
+        aux_fn = make_aux_loss_fn(dict(gcfg.aux_loss))
+        aux_names = [k for k, _ in gcfg.aux_loss]
+        zero_aux = {k: torch.zeros((B,) if lane_separable else (), device=device)
+                    for k in aux_names}
+        weight_fn = _make_weight_fn(gcfg)
+        scale = torch.tensor(gcfg.scale, dtype=torch.float32, device=device)
+        scale = scale[0] if scale.numel() == 1 else scale.reshape(1, 1, 1, -1)
+
+        src = phi_init if phi_init is not None else operator.phi_init()
+        phi = {k: torch.as_tensor(v, dtype=torch.float32, device=device) for k, v in src.items()}
+        if sharded:
+            phi, opt_state_init, eps_hist_init = (
+                None if v is None else map_tensors(rows, v)
+                for v in (phi, opt_state_init, eps_hist_init))
+            x0_buf_init = None if x0_buf_init is None else rows(torch.as_tensor(x0_buf_init), 1)
+        opt = make_phi_optimizer(operator.optimizer, operator.etas())
+        opt_state = opt_state_init if opt_state_init is not None else opt.init(phi)
+        if eta_scale is not None:
+            # every phi step times a scalar: p + s·(p' − p), as the JAX loop does
+            # (guided.py:288-305); the optimizer state evolves as without it
+            s_eta = torch.tensor(float(eta_scale), dtype=torch.float32, device=device)
+            base_update = opt.update
+
+            def scaled_update(phi_, g_, st_):
+                new, st2 = base_update(phi_, g_, st_)
+                return {k: phi_[k] + s_eta * (new[k] - phi_[k]) for k in phi_}, st2
+
+            opt = dataclasses.replace(opt, update=scaled_update)
+        y = measurement
+        # the batch-wide reductions of the joint loss span every dp rank's images
+        red = (lambda t: t) if lane_separable else (lambda t: dp_sum(t, mesh))  # noqa: E731
+
+        def loss_terms(x0, phi_):
+            degraded = 2.0 * operator.forward(phi_, x0) - 1.0
+            diff = ((y - degraded) * weight_fn(x0)).float()
+            if gcfg.loss_function == "norm":
+                sep = torch.sqrt(torch.sum(diff ** 2, dim=(1, 2, 3)))
+                loss = torch.sum(sep) if lane_separable else torch.sqrt(red(torch.sum(diff ** 2)))
+            else:
+                sep = torch.mean(diff ** 2, dim=(1, 2, 3))
+                loss = red(torch.sum(sep))
+            aux = {}
+            if aux_fn is not None:
+                aux_total, aux = aux_fn(x0, per_lane=lane_separable, mesh=mesh)
+                loss = loss + aux_total
+            return loss, sep, aux
+
+        def grads(x0, phi_, wrt_x0: bool):
+            """Gradient of the guidance loss w.r.t. phi (and x0-hat), at leaves."""
+            leaves = {k: v.detach().requires_grad_(True) for k, v in phi_.items()}
+            x0_leaf = x0.detach().requires_grad_(wrt_x0)
+            with torch.enable_grad():
+                total, sep, aux = loss_terms(x0_leaf, leaves)
+                wrt = ([x0_leaf] if wrt_x0 else []) + list(leaves.values())
+                gs = torch.autograd.grad(total, wrt) if wrt else ()
+            g_x0 = gs[0] if wrt_x0 else None
+            g_phi = dict(zip(leaves, gs[1:] if wrt_x0 else gs))
+            return g_x0, g_phi, sep.detach(), {k: aux[k].detach() for k in aux_names}
+
+        def ps_loss_grad(x0):
+            """condition_methods.py:35-53: the loss ([B] per image with
+            ``lane_separable``, else one value for the batch) and the x0-hat
+            gradient of its sum."""
+            x0_leaf = x0.detach().requires_grad_(True)
+            dims = (1, 2, 3)
+            with torch.enable_grad():
+                if gcfg.noiser_name == "gaussian":  # ‖y − A(x0[..., :3])‖
+                    diff = (y - operator.forward({}, x0_leaf[..., 0:3])).float()
+                    loss = (torch.sqrt(torch.sum(diff ** 2, dim=dims)) if lane_separable
+                            else torch.sqrt(red(torch.sum(diff ** 2))))
+                else:  # poisson: over the FULL x0, no RGB slice (condition_methods.py:43-48)
+                    diff = (y - operator.forward({}, x0_leaf)).float()
+                    if lane_separable:
+                        norm = torch.sqrt(torch.sum(diff ** 2, dim=dims)).reshape(-1, 1, 1, 1)
+                        loss = torch.mean(norm / torch.abs(y.float()), dim=dims)
+                    else:  # mean(norm / |y|) as norm * mean(1 / |y|): every rank then uses
+                        # the reduced norm alike, which dp_sum's identity backward needs
+                        norm = torch.sqrt(red(torch.sum(diff ** 2)))
+                        loss = norm * dp_mean(1.0 / torch.abs(y.float()), mesh)
+                (g_x0,) = torch.autograd.grad(loss.sum(), x0_leaf)
+            return loss.detach(), g_x0
+
+        def unet_x0(x, tb, use_x_prev):
+            """x0-hat and the variance channels; with ``use_x_prev`` also the
+            autograd leaf x and the graph of x0-hat over it (the pullback)."""
+            xg = x.detach().requires_grad_(use_x_prev)
+            with torch.set_grad_enabled(use_x_prev):
+                eps, v = split_model_output(model_fn(xg, consts["model_timesteps"][tb]),
+                                            x.shape[-1])
+                x0_graph = process_xstart(predict_xstart(xg, tb, eps, consts, scfg), scfg)
+            return xg, x0_graph, v.detach()
+
+        def pullback(xg, x0_graph, g_x0):
+            """The one pullback through the UNet: the cotangent of x0-hat alone,
+            i.e. a zero cotangent for the variance channels."""
+            (g_x,) = torch.autograd.grad(x0_graph, xg, g_x0)
+            return g_x
+
+        def osmosis_guided(x, phi_, st, t, tb, use_x_prev):
+            xg, x0_graph, v = unet_x0(x, tb, use_x_prev)
+            x0 = x0_graph.detach()
+            logvar = model_log_variance(v, tb, consts, scfg)
+            mean = posterior_mean(x0, x, tb, consts)
+            freeze = bool(masks["freeze_phi"][t])
+            # the phi warm phase, then the inner phi-only iterations
+            # (condition_methods.py:193-194)
+            n_inner = int(masks["phi_warmup"][t]) + (0 if freeze else gcfg.n_iter - 1)
+            with profiling.span("guided.phi_fit", iterations=n_inner):
+                for _ in range(n_inner):
+                    _, g_phi, _, _ = grads(x0, phi_, wrt_x0=False)
+                    phi_, st = opt.update(phi_, g_phi, st)
+            with profiling.span("guided.joint_grad"):
+                g_x0, g_phi, sep, aux_vec = grads(x0, phi_, wrt_x0=True)
+                if not freeze:
+                    phi_, st = opt.update(phi_, g_phi, st)
+            profiling.count("guided.phi_iters", n_inner + (not freeze))
+            if use_x_prev:
+                with profiling.span("guided.pullback"):
+                    g_used = pullback(xg, x0_graph, g_x0)
+                    if gcfg.gradient_clip:
+                        g_used = torch.clamp(g_used, -gcfg.gradient_clip_value,
+                                             gcfg.gradient_clip_value)
+            else:  # the x0-hat gradient, never clipped (condition_methods.py:227-229)
+                g_used = g_x0
+            guidance = scale * g_used
+            return mean - guidance, logvar, x0, guidance, phi_, st, sep, aux_vec
+
+        def plain_update(x, phi_, st, t, tb):
+            with torch.no_grad():
+                out = p_mean_variance(model_fn, x, tb, consts, scfg)
+            return (out["mean"], out["log_variance"], out["pred_xstart"], torch.zeros_like(x),
+                    phi_, st, torch.zeros((B,), device=device), zero_aux)
+
+        def ps_step(x, t, tb, i, use_x_prev):
+            xg, x0_graph, v = unet_x0(x, tb, use_x_prev)
+            x0 = x0_graph.detach()
+            out = {"mean": posterior_mean(x0, x, tb, consts),
+                   "log_variance": model_log_variance(v, tb, consts, scfg), "pred_xstart": x0}
+            # noise FIRST (p_sample, gaussian_diffusion.py:232-233,494-502)
+            if deterministic:
+                sample = out["mean"]
+            elif scfg.sampler == "ddim":
+                sample = ddim_step(x, out, tb, draw(t, tuple(x.shape), i), consts, scfg.ddim_eta)
+            else:
+                sample = ddpm_noise_step(out, tb, draw(t, tuple(x.shape), i))
+            with profiling.span("guided.joint_grad"):
+                loss, g_x0 = ps_loss_grad(x0)
+            g_used = g_x0
+            if use_x_prev:
+                with profiling.span("guided.pullback"):
+                    g_used = pullback(xg, x0_graph, g_x0)
+            return sample - scale * g_used, x0, loss.expand(B) if loss.dim() == 0 else loss
+
+        if ltsp:
+            plms = torch.from_numpy(_plms_coeffs(T)).to(device)
+            if eps_hist_init is not None:
+                eps_hist = tuple(torch.as_tensor(e, device=device) for e in eps_hist_init)
+            else:
+                eps_hist = tuple(torch.zeros_like(x_init) for _ in range(3))
+
+        def one_iteration(x, phi_, st, t, tb, i, use_x_prev):
+            """One update at t: (x_next, phi, opt state, x0-hat, sep, aux, eps_t)."""
+            if ps:
+                x_next, x0, sep = ps_step(x, t, tb, i, use_x_prev)
+                return x_next, phi_, st, x0, sep, zero_aux, None
+            if always_guided or masks["guidance"][t]:
+                upd = osmosis_guided(x, phi_, st, t, tb, use_x_prev)
+            else:
+                upd = plain_update(x, phi_, st, t, tb)
+            x_t, logvar, x0, guidance, phi_, st, sep, aux_vec = upd
+            if ltsp:
+                # Lie-Trotter split: (a) the PLMS / DDIM(eta=0) diffusion substep
+                # on eps, (b) the first-order guidance substep
+                sra = consts["sqrt_recip_alphas_cumprod"][tb].reshape(-1, 1, 1, 1)
+                srm1 = consts["sqrt_recipm1_alphas_cumprod"][tb].reshape(-1, 1, 1, 1)
+                ab_prev = consts["alphas_cumprod_prev"][tb].reshape(-1, 1, 1, 1)
+                eps_t = (sra * x - x0) / srm1
+                eps_eff = torch.tensordot(plms[t], torch.stack((eps_t,) + eps_hist), dims=1)
+                x0_eff = sra * x - srm1 * eps_eff
+                x_diff = torch.sqrt(ab_prev) * x0_eff + torch.sqrt(1.0 - ab_prev) * eps_eff
+                return x_diff - guidance, phi_, st, x0, sep, aux_vec, eps_t
+            # noise AFTER guidance (gaussian_diffusion.py:266-268)
+            if not (deterministic or t == 0):
+                x_t = x_t + torch.exp(0.5 * logvar) * draw(t, tuple(x_t.shape), i)
+            return x_t, phi_, st, x0, sep, aux_vec, None
+
+        if record_every is not None:
+            rec_steps = record_steps_for(T, record_every, extra=(T - 1, 999))
+            slot_map = make_slot_map(T, rec_steps)
+            if x0_buf_init is not None:  # a segment: earlier segments' snapshots carry on
+                buf_x0 = torch.as_tensor(x0_buf_init, device=device).clone()
+            else:
+                buf_x0 = torch.zeros((len(rec_steps),) + tuple(x_init.shape), dtype=x_init.dtype,
+                                     device=device)
+        else:
+            rec_steps, slot_map, buf_x0 = (), None, None
+
+        # 'ps' always takes the x_prev gradient (condition_methods.py:40); the
+        # hybrid schedule takes it at chain positions 0, k, 2k, ... only: the JAX
+        # loop's [T // k, k] blocks, each starting with the full step, and the
+        # remainder block too
+        full_grad = ps or gcfg.gradient_x_prev
+        every = gcfg.x_prev_every if _hybrid(gcfg) else 1
+        seps, phis, auxs, stds = [], [], [], []
+        x = x_init.detach()
+        x0 = torch.zeros_like(x)
+        for s, t in enumerate(steps):
+            use_x_prev = full_grad and s % every == 0
+            with profiling.span("guided.step", t=t, x_prev=use_x_prev):
+                tb = torch.full((B,), t, dtype=torch.long, device=device)
+                sep, aux_vec = torch.zeros((B,), device=device), zero_aux
+                for i in range(1 if never_alternates else int(masks["alternate_len"][t])):
+                    x, phi, opt_state, x0, sep, aux_vec, eps_t = one_iteration(
+                        x, phi, opt_state, t, tb, i, use_x_prev)
+                    if ltsp:
+                        eps_hist = (eps_t, eps_hist[0], eps_hist[1])
+                x = x.detach()
+                if slot_map is not None:
+                    record_update(buf_x0, x0, int(slot_map[t]))
+                seps.append(sep)
+                phis.append(phi)
+                auxs.append(aux_vec)
+                stds.append(x0.float().reshape(B, -1).std(dim=1, unbiased=False))
+            profiling.count("guided.steps")
+            if use_x_prev and (ps or always_guided or masks["guidance"][t]):  # a pullback ran
+                profiling.count("guided.x_prev_steps")
+            if progress_every and t % progress_every == 0:
+                vals = {k: np.round(v[0].detach().cpu().numpy(), 3).tolist()
+                        for k, v in phi.items()}
+                print(f"  t={t:4d} loss={float(sep[0]):.3f} {vals}", flush=True)
+
+        res = GuidedResult(
+            sample=x,
+            pred_xstart=x0,
+            phi=phi,
+            sep_loss=torch.stack(seps),
+            phi_trace={k: torch.stack([p[k] for p in phis]) for k in phi},
+            aux_trace={k: torch.stack([a[k] for a in auxs]) for k in aux_names},
+            x0_std_trace=torch.stack(stds),
+            opt_state=opt_state,
+            x0_snapshots=buf_x0,
+            eps_hist=eps_hist if ltsp else None,
+            snapshot_steps=tuple(rec_steps),
+        )
+        return _gather_images(res, mesh, lane_separable) if sharded else res
 
 
 _ROWS = ("sample", "pred_xstart", "phi", "opt_state", "eps_hist")  # images on axis 0

@@ -39,6 +39,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import parse_attention_resolutions, parse_channel_mult
+from ..utils import profiling
 from .nn import GroupNorm32, avg_pool_2x, timestep_embedding, upsample_nearest_2x, zero_module
 
 
@@ -350,20 +351,23 @@ class UNetModel(nn.Module):
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
         """``x`` NHWC [B, H, W, in_channels], ``timesteps`` [B] -> NHWC
-        [B, H, W, out_channels]."""
-        dt = self.cfg.dtype
-        emb = self.time_embed(timestep_embedding(timesteps, self.cfg.model_channels).to(dt))
-        h = x.permute(0, 3, 1, 2).to(dt)
-        hs = []
-        for block in self.input_blocks:
-            for layer in block:
+        [B, H, W, out_channels]. Counts ``unet.calls``; a ``unet.forward``
+        span under ``utils/profiling.tracing()``."""
+        profiling.count("unet.calls")
+        with profiling.span("unet.forward", batch=x.shape[0]):
+            dt = self.cfg.dtype
+            emb = self.time_embed(timestep_embedding(timesteps, self.cfg.model_channels).to(dt))
+            h = x.permute(0, 3, 1, 2).to(dt)
+            hs = []
+            for block in self.input_blocks:
+                for layer in block:
+                    h = self._run_layer(layer, h, emb)
+                hs.append(h)
+            for layer in self.middle_block:
                 h = self._run_layer(layer, h, emb)
-            hs.append(h)
-        for layer in self.middle_block:
-            h = self._run_layer(layer, h, emb)
-        for block in self.output_blocks:
-            h = torch.cat([h, hs.pop()], dim=1)
-            for layer in block:
-                h = self._run_layer(layer, h, emb)
-        h = self.out[2](self.out[0](h.float(), act="silu"))
-        return h.permute(0, 2, 3, 1)
+            for block in self.output_blocks:
+                h = torch.cat([h, hs.pop()], dim=1)
+                for layer in block:
+                    h = self._run_layer(layer, h, emb)
+            h = self.out[2](self.out[0](h.float(), act="silu"))
+            return h.permute(0, 2, 3, 1)

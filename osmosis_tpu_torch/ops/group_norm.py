@@ -31,10 +31,13 @@ one write of dx (K4), at 3.35 TB/s.
 Tensors are NCHW in ``channels_last`` memory, so ``x.permute(0, 2, 3, 1)`` is
 the contiguous [B, H, W, C] that the kernels read. A wrapper runs the plain
 PyTorch version only for a tensor on the CPU; for a CUDA tensor it launches
-its kernels or raises. Each call that launches adds one to ``launches`` and
-the number of device kernels it launched to ``kernel_launches``; K4 also
-counts its launches that computed the parameter sums (``param_sum_launches``)
-and, of those, the ones with the FiLM sums (``film_sum_launches``).
+its kernels or raises. Each call that launches adds one to the counter
+``<wrapper>.launches`` (``utils/profiling.counters``; the wrappers are
+``group_norm_forward`` and ``group_norm_backward``) and the number of device
+kernels it launched to ``<wrapper>.kernel_launches``; K4 also counts its
+launches that computed the parameter sums (``group_norm_backward.
+param_sum_launches``) and, of those, the ones with the FiLM sums
+(``group_norm_backward.film_sum_launches``).
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils import profiling
 from . import _build
 
 NUM_GROUPS = 32
@@ -359,13 +363,9 @@ def group_norm_forward(x, weight, bias, fs=None, ft=None, silu=False,
             int(p.geometry == "split"), mode, _DTYPE_CODES[x.dtype], float(eps),
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "group_norm forward")
-    group_norm_forward.launches += 1
-    group_norm_forward.kernel_launches += p.kernels
+    profiling.count("group_norm_forward.launches")
+    profiling.count("group_norm_forward.kernel_launches", p.kernels)
     return y, mean_c, inv_c
-
-
-group_norm_forward.launches = 0
-group_norm_forward.kernel_launches = 0
 
 
 def group_norm_backward(gy, x, weight, bias, fs, ft, silu, mean_c, inv_c,
@@ -407,10 +407,12 @@ def group_norm_backward(gy, x, weight, bias, fs, ft, silu, mean_c, inv_c,
             int(p.geometry == "split"), mode, _DTYPE_CODES[x.dtype], sums,
             torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(lib, code, "group_norm backward")
-    group_norm_backward.launches += 1
-    group_norm_backward.kernel_launches += p.kernels
-    group_norm_backward.param_sum_launches += int(param_grads)
-    group_norm_backward.film_sum_launches += int(sums == 4)
+    profiling.count("group_norm_backward.launches")
+    profiling.count("group_norm_backward.kernel_launches", p.kernels)
+    if param_grads:  # the launches that computed dγ, dβ (training) ...
+        profiling.count("group_norm_backward.param_sum_launches")
+    if sums == 4:  # ... and the FiLM dfs, dft
+        profiling.count("group_norm_backward.film_sum_launches")
     if not param_grads:
         return dx, None, None, None, None
     # per-batch sums [B, C] -> [C]; at B = 1 a view, no device op
@@ -419,12 +421,6 @@ def group_norm_backward(gy, x, weight, bias, fs, ft, silu, mean_c, inv_c,
     dfs = pg[2].to(fs.dtype) if fs is not None else None
     dft = pg[3].to(ft.dtype) if fs is not None else None
     return dx, dweight, dbias, dfs, dft
-
-
-group_norm_backward.launches = 0
-group_norm_backward.kernel_launches = 0
-group_norm_backward.param_sum_launches = 0  # launches that computed dγ, dβ (training)
-group_norm_backward.film_sum_launches = 0   # ... and the FiLM dfs, dft (sums = 4)
 
 
 class _GroupNormAct(torch.autograd.Function):

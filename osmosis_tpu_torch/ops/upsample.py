@@ -16,7 +16,8 @@ source. Two ``autograd.Function``s serve four directions with them:
 
 A wrapper runs the kernel's plain PyTorch version only for a tensor on the
 CPU; for a CUDA tensor it launches the kernel or raises. Each kernel launch
-adds one to the wrapper's ``launches`` count.
+adds one to the counter ``<wrapper>.launches`` (``utils/profiling.counters``:
+``upsample_nearest_2x.launches``, ``box_sum_2x.launches``).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import ctypes
 
 import torch
 
+from ..utils import profiling
 from . import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -86,11 +88,8 @@ def upsample_nearest_2x_kernel(x: torch.Tensor, scale: float = 1.0) -> torch.Ten
     b, h, w, c = x.shape
     y = torch.empty((b, 2 * h, 2 * w, c), dtype=x.dtype, device=x.device)
     _launch("osm_upsample_nearest_2x", x, y, (b, h, w, c), code, scale)
-    upsample_nearest_2x_kernel.launches += 1
+    profiling.count("upsample_nearest_2x.launches")
     return y
-
-
-upsample_nearest_2x_kernel.launches = 0
 
 
 def box_sum_2x_kernel(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
@@ -105,11 +104,8 @@ def box_sum_2x_kernel(x: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
         raise ValueError(f"box_sum_2x: H and W must be even, got {h2}x{w2}")
     y = torch.empty((b, h2 // 2, w2 // 2, c), dtype=x.dtype, device=x.device)
     _launch("osm_box_sum_2x", x, y, (b, h2 // 2, w2 // 2, c), code, scale)
-    box_sum_2x_kernel.launches += 1
+    profiling.count("box_sum_2x.launches")
     return y
-
-
-box_sum_2x_kernel.launches = 0
 
 
 class _UpsampleNearest2x(torch.autograd.Function):

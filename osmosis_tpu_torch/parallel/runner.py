@@ -34,6 +34,7 @@ from ..diffusion.sampler import ModelFn, SamplerConfig
 from ..diffusion.schedules import DiffusionSchedule
 from ..guidance.operators import Operator
 from ..guidance.phi_optim import make_phi_optimizer
+from ..utils import profiling
 
 
 def _broadcast_cold_start(operator: Operator, n: int, device):
@@ -91,25 +92,27 @@ def make_batched_segment_runner(
     reproduces the whole chain bit for bit (``progress_segments``,
     ``chain_checkpoint``). ``progress_every`` prints lane 0's loss and phi.
     ``mesh`` shards the lanes over dp (the module's docstring); every rank
-    passes all N lanes and gets all N back."""
+    passes all N lanes and gets all N back. A call is a ``runner.segment``
+    span under ``utils/profiling.tracing()``."""
 
     def run(xs, ys, seed=None, phi0s=None, opt0s=None, eta_scale=None,
             ts: Optional[Sequence[int]] = None, buf0s=None, eps0s=None, noise_fn=None):
-        if noise_fn is None and seed is not None:
-            # one draw broadcast to every lane: lane j sees image j's batch-1 noise
-            noise_fn = keyed_noise_fn(seed, xs.device, xs.dtype, shared_lanes=True)
-        cold_phi, cold_opt = _broadcast_cold_start(operator, xs.shape[0], xs.device)
-        return guided_sample_loop(
-            model_fn, schedule, xs, ys, operator, gcfg, scfg,
-            sample_pattern=sample_pattern, record_every=record_every,
-            deterministic=noise_fn is None,
-            phi_init=cold_phi if phi0s is None else phi0s,
-            # None is also the global_opt_reset path: a warm phi, cold moments
-            opt_state_init=cold_opt if opt0s is None else opt0s,
-            noise_fn=noise_fn, eta_scale=eta_scale, ts=ts, x0_buf_init=buf0s,
-            eps_hist_init=eps0s, lane_separable=True, progress_every=progress_every,
-            mesh=mesh,
-        )
+        with profiling.span("runner.segment", lanes=xs.shape[0]):
+            if noise_fn is None and seed is not None:
+                # one draw broadcast to every lane: lane j sees image j's batch-1 noise
+                noise_fn = keyed_noise_fn(seed, xs.device, xs.dtype, shared_lanes=True)
+            cold_phi, cold_opt = _broadcast_cold_start(operator, xs.shape[0], xs.device)
+            return guided_sample_loop(
+                model_fn, schedule, xs, ys, operator, gcfg, scfg,
+                sample_pattern=sample_pattern, record_every=record_every,
+                deterministic=noise_fn is None,
+                phi_init=cold_phi if phi0s is None else phi0s,
+                # None is also the global_opt_reset path: a warm phi, cold moments
+                opt_state_init=cold_opt if opt0s is None else opt0s,
+                noise_fn=noise_fn, eta_scale=eta_scale, ts=ts, x0_buf_init=buf0s,
+                eps_hist_init=eps0s, lane_separable=True, progress_every=progress_every,
+                mesh=mesh,
+            )
 
     return run
 

@@ -129,24 +129,22 @@ def make_inputs(path: str, size: int, steps: int, lanes: int, seed: int = 0) -> 
         noises=f(steps, lanes, size, size, 4))
 
 
-def kernel_counts() -> Dict[str, int]:
-    from ..ops import group_norm as G
-    from ..ops import upsample as U
+KERNELS = ("upsample_nearest_2x", "box_sum_2x", "group_norm_forward", "group_norm_backward")
 
-    return {"upsample_nearest_2x": U.upsample_nearest_2x_kernel.launches,
-            "box_sum_2x": U.box_sum_2x_kernel.launches,
-            "group_norm_forward": G.group_norm_forward.launches,
-            "group_norm_backward": G.group_norm_backward.launches}
+
+def kernel_counts() -> Dict[str, int]:
+    from ..utils import profiling
+
+    c = profiling.counters()
+    return {name: c[f"{name}.launches"] for name in KERNELS}
 
 
 def zero_kernel_counts() -> None:
-    from ..ops import group_norm as G
-    from ..ops import upsample as U
+    from ..utils import profiling
 
-    for fn in (U.upsample_nearest_2x_kernel, U.box_sum_2x_kernel, G.group_norm_forward,
-               G.group_norm_backward):
-        fn.launches = 0
-    G.group_norm_forward.kernel_launches = G.group_norm_backward.kernel_launches = 0
+    profiling.reset_counters(*(f"{name}.launches" for name in KERNELS),
+                             "group_norm_forward.kernel_launches",
+                             "group_norm_backward.kernel_launches")
 
 
 def _result(res) -> Dict[str, np.ndarray]:

@@ -2,21 +2,146 @@
 
   * ``PhaseTimers`` / ``phase(name)``: wall time per named phase,
     accumulated into the process-wide ``TIMERS`` and summarised at a run's
-    end;
-  * ``device_trace(dir)``: a ``torch.profiler`` trace of the host and the
-    card, written into ``dir`` as a Chrome trace;
+    end (the run log); while tracing is on, a phase is also a span;
+  * ``span(name, **attrs)``: a span of the program's own layers (the
+    guided chain's segment, step, phi fit, joint gradient and pullback, the
+    UNet's forward, the fleet's segment). Off, the default, it is one shared
+    null context: no allocation, no clock read. Inside ``tracing()`` each
+    span is kept in memory as a :class:`SpanRecord` on ``torch.profiler``'s
+    clock (epoch nanoseconds, ``time.time_ns``), and while a profiler runs
+    it also opens ``torch.profiler.record_function(name)``, so the trace
+    holds it as a user annotation beside the device's kernels;
+    ``take_spans()`` returns the records and clears them;
+  * ``count(name, n)`` / ``counters()`` / ``reset_counters()``: the
+    process's counters, always on: ``guided.steps``, ``guided.x_prev_steps``,
+    ``guided.phi_iters`` and ``unet.calls`` where the chain does the work,
+    and each kernel wrapper's launches (``<wrapper>.launches``; the
+    GroupNorm kernels' ``kernel_launches``, ``param_sum_launches`` and
+    ``film_sum_launches`` too);
   * ``enable_nan_debugging()``: autograd's anomaly mode, which raises where a
     backward makes a NaN.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
-import os
+import dataclasses
+import itertools
 import threading
 import time
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict, List
+
+import torch
+
+_LOCK = threading.Lock()
+_NULL = contextlib.nullcontext()
+_TRACING = 0                      # open tracing() blocks
+_RECORDS: List["SpanRecord"] = []
+_OPEN = threading.local()         # each thread's stack of open spans
+_IDS = itertools.count(1)
+_COUNTS: Dict[str, int] = defaultdict(int)
+
+
+@dataclasses.dataclass(frozen=True)
+class SpanRecord:
+    """One closed span. ``parent`` is the span open on the same thread when
+    it began (0: none); ``root`` the outermost of them, which the spans of
+    one chain segment share. Times are epoch nanoseconds."""
+    name: str
+    id: int
+    parent: int
+    root: int
+    thread: int
+    start_ns: int
+    end_ns: int
+    attrs: dict
+
+    @property
+    def duration_ns(self) -> int:
+        return self.end_ns - self.start_ns
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "id", "parent", "root", "start", "annotation")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        stack = getattr(_OPEN, "stack", None)
+        if stack is None:
+            stack = _OPEN.stack = []
+        self.id = next(_IDS)
+        self.parent = stack[-1].id if stack else 0
+        self.root = stack[-1].root if stack else self.id
+        self.annotation = None
+        if torch._C._autograd._profiler_enabled():
+            self.annotation = torch.profiler.record_function(self.name)
+            self.annotation.__enter__()
+        stack.append(self)
+        self.start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        _OPEN.stack.pop()
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        rec = SpanRecord(self.name, self.id, self.parent, self.root, threading.get_ident(),
+                         self.start, end, self.attrs)
+        with _LOCK:
+            _RECORDS.append(rec)
+        return False
+
+
+def span(name: str, **attrs):
+    """A context manager around one piece of the program's work (the
+    module's docstring); a shared null context unless tracing is on."""
+    if not _TRACING:
+        return _NULL
+    return _Span(name, attrs)
+
+
+@contextlib.contextmanager
+def tracing():
+    """Keep the spans of the block, of every thread (nested blocks add up)."""
+    global _TRACING
+    with _LOCK:
+        _TRACING += 1
+    try:
+        yield
+    finally:
+        with _LOCK:
+            _TRACING -= 1
+
+
+def take_spans() -> List[SpanRecord]:
+    """The spans closed since the last call, in the order they closed."""
+    global _RECORDS
+    with _LOCK:
+        out, _RECORDS = _RECORDS, []
+    return out
+
+
+def count(name: str, n: int = 1):
+    """Add ``n`` to the counter ``name``."""
+    with _LOCK:
+        _COUNTS[name] += n
+
+
+def counters() -> collections.Counter:
+    """A copy of every counter (one never counted reads 0)."""
+    with _LOCK:
+        return collections.Counter(_COUNTS)
+
+
+def reset_counters(*names: str):
+    """Set the named counters, or all of them, to 0."""
+    with _LOCK:
+        for name in names or list(_COUNTS):
+            _COUNTS[name] = 0
 
 
 class PhaseTimers:
@@ -32,7 +157,8 @@ class PhaseTimers:
     def phase(self, name: str):
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             with self._lock:
@@ -50,27 +176,6 @@ TIMERS = PhaseTimers()
 phase = TIMERS.phase
 
 
-@contextlib.contextmanager
-def device_trace(log_dir: Optional[str]):
-    """A ``torch.profiler`` trace of the CPU and, where there is a card, CUDA
-    activity while the block runs, written into ``log_dir`` as
-    ``trace-<pid>-<ns>.json`` (Chrome trace format, for chrome://tracing or
-    Perfetto); a no-op when ``log_dir`` is empty or None."""
-    if not log_dir:
-        yield
-        return
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))
-
-
 def enable_nan_debugging():
     """Raise where a NaN appears: ``torch.autograd.set_detect_anomaly(True,
     check_nan=True)``. Weaker than the JAX package's ``jax_debug_nans``,
@@ -79,6 +184,4 @@ def enable_nan_debugging():
     a forward (or under ``torch.no_grad``, as in the prior sampler) passes
     until a gradient carries it, and a NaN that no gradient reaches passes
     unseen."""
-    import torch
-
     torch.autograd.set_detect_anomaly(True, check_nan=True)

@@ -1,0 +1,14 @@
+"""unet_host_ms_per_step (ms/step, the program's spans): the host's time in
+the program's ``unet.forward`` spans (the UNet's launches, or its wait for
+room in the launch queue where the device sets the pace), over the
+``guided.steps`` counter, in pass B (``harness/spans.py``). None where the
+program has no spans."""
+
+from harness.spans import passes
+
+
+def read(ctx):
+    p = passes(ctx)
+    if p is None or not p.host.steps:
+        return None
+    return 1e3 * p.host.total_s("unet.forward") / p.host.steps

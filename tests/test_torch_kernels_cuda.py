@@ -15,6 +15,7 @@ import torch
 
 from osmosis_tpu_torch.ops import group_norm as G
 from osmosis_tpu_torch.ops import upsample as U
+from osmosis_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -35,14 +36,16 @@ def _close(a, b, rtol):
 @pytest.mark.parametrize("shape", [(1, 8, 8, 1024), (1, 128, 128, 256), (2, 6, 10, 64)])
 def test_resample_kernels_are_exact(cuda, dtype, shape):
     x = torch.randn(shape, device=cuda).to(dtype)
-    n1, n2 = U.upsample_nearest_2x_kernel.launches, U.box_sum_2x_kernel.launches
+    c = profiling.counters()
+    n1, n2 = c["upsample_nearest_2x.launches"], c["box_sum_2x.launches"]
     for scale in (1.0, 0.25):
         assert torch.equal(U.upsample_nearest_2x_kernel(x, scale),
                            U.upsample_nearest_2x_plain(x, scale))
         assert torch.equal(U.box_sum_2x_kernel(x, scale), U.box_sum_2x_plain(x, scale))
     torch.cuda.synchronize()
-    assert U.upsample_nearest_2x_kernel.launches == n1 + 2
-    assert U.box_sum_2x_kernel.launches == n2 + 2
+    c = profiling.counters()
+    assert c["upsample_nearest_2x.launches"] == n1 + 2
+    assert c["box_sum_2x.launches"] == n2 + 2
 
 
 def test_resample_kernels_reject_what_they_do_not_take(cuda):
@@ -80,12 +83,14 @@ def test_group_norm_kernels_match_plain(cuda, monkeypatch, geometry, dtype, rtol
     if geometry == "split":
         monkeypatch.setattr(G, "MAX_CLUSTER", 0)
     x, wt, bias, fs, ft, silu, gy = _gn_inputs(cuda, dtype, 2, c, h, w, mode, c + h)
-    k0 = (G.group_norm_forward.kernel_launches, G.group_norm_backward.kernel_launches)
+    c = profiling.counters()
+    k0 = (c["group_norm_forward.kernel_launches"], c["group_norm_backward.kernel_launches"])
     y, m, i = G.group_norm_forward(x, wt, bias, fs, ft, silu)
     got = G.group_norm_backward(gy, x, wt, bias, fs, ft, silu, m, i)
     per_call = 1 if geometry == "resident" else 2
-    assert G.group_norm_forward.kernel_launches == k0[0] + per_call
-    assert G.group_norm_backward.kernel_launches == k0[1] + per_call
+    c = profiling.counters()
+    assert c["group_norm_forward.kernel_launches"] == k0[0] + per_call
+    assert c["group_norm_backward.kernel_launches"] == k0[1] + per_call
     yp, mp, ip = G.group_norm_forward_plain(x, wt, bias, fs, ft, silu)
     ref = G.group_norm_backward_plain(gy, x, wt, bias, fs, ft, silu, mp, ip)
     torch.cuda.synchronize()
@@ -199,10 +204,12 @@ def test_bf16_tiny_unet_through_the_kernels_matches_the_plain_versions(cuda, mon
         (dx,) = torch.autograd.grad(y, xd, g)
         return y.detach(), dx
 
-    counts = (U.upsample_nearest_2x_kernel.launches, G.group_norm_backward.launches)
+    c = profiling.counters()
+    counts = (c["upsample_nearest_2x.launches"], c["group_norm_backward.launches"])
     got = run()
-    assert U.upsample_nearest_2x_kernel.launches > counts[0]
-    assert G.group_norm_backward.launches > counts[1]
+    c = profiling.counters()
+    assert c["upsample_nearest_2x.launches"] > counts[0]
+    assert c["group_norm_backward.launches"] > counts[1]
     with monkeypatch.context() as m:
         _plain_on_the_card(m)
         ref = run()
@@ -240,7 +247,7 @@ def test_tiny_train_step_through_the_kernels_matches_the_cpu(cuda):
 
     consts = make_schedule("linear", 1000).device_constants()
     out = {}
-    k4 = G.group_norm_backward.launches
+    k4 = profiling.counters()["group_norm_backward.launches"]
     for dev in ("cpu", cuda):
         m = init_unet(cfg, seed=1)
         m.load_state_dict(model.state_dict())
@@ -251,7 +258,7 @@ def test_tiny_train_step_through_the_kernels_matches_the_cpu(cuda):
                                                 device=dev))
         loss.backward()
         out[str(dev)] = (loss.item(), {n: p.grad.cpu() for n, p in m.named_parameters()})
-    assert G.group_norm_backward.launches > k4
+    assert profiling.counters()["group_norm_backward.launches"] > k4
     (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out[str(cuda)]
     assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
     top = max(g.abs().max().item() for g in g_cpu.values())

@@ -1,14 +1,11 @@
 """The port's ``utils/profiling`` and ``perf`` against the JAX package's on
 the CPU: ``phase`` and ``TIMERS`` summarise in JAX's format,
-``device_trace`` writes a Chrome trace (a no-op without a directory),
 ``enable_nan_debugging`` turns on autograd's NaN check, and the
 ``OSMOSIS_TPU_*`` environment overrides act on a run's knobs as JAX's
 ``effective()`` reads them: an ``OSMOSIS_TPU_ASYNC_SAVE=1`` run saves on the
 worker thread, and ``snapshot_text`` writes the values after the overrides."""
 
 import dataclasses
-import json
-import os
 import threading
 import time
 from os.path import join as pjoin
@@ -38,18 +35,6 @@ def test_phase_and_timers_summarise_as_jax_does():
         time.sleep(0.01)
     assert PR.TIMERS.counts["test_phase"] == before + 1 and PR.TIMERS.totals["test_phase"] >= 0.01
     assert "  test_phase " in PR.TIMERS.summary()
-
-
-def test_device_trace_writes_a_chrome_trace(tmp_path):
-    with PR.device_trace(None):
-        torch.ones(3).sum()
-    with PR.device_trace(str(tmp_path / "trace")):
-        (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
-    files = os.listdir(tmp_path / "trace")
-    assert len(files) == 1 and files[0].endswith(".json")
-    with open(tmp_path / "trace" / files[0]) as f:
-        events = json.load(f)["traceEvents"]
-    assert any("mm" in str(e.get("name", "")) for e in events)
 
 
 def test_enable_nan_debugging_checks_the_backward():
