@@ -5,7 +5,7 @@
 
 Phases, each of which raises (and so exits non-zero) on a failed check:
   1. device: the card's name and power limit;
-  2. build: the CUDA C++ kernels (K1-K4) from osmosis_tpu_torch/ops/csrc with
+  2. build: the CUDA C++ kernels (K1-K5) from osmosis_tpu_torch/ops/csrc with
      nvcc for sm_90a, one nvcc per source, all started together, and the
      native host ops (osmosis_tpu_torch/utils/csrc/host_ops.cc, g++ with
      zlib), whose build failure raises;
@@ -16,13 +16,19 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
      eagerly, beside its
      plain version, its byte bound and one PyTorch library call that
      computes the same function; K3/K4 also give the same bits on a second
-     call and launch the device kernels their geometry plans (1 or 2);
+     call and launch the device kernels their geometry plans (1 or 2); K5,
+     the phi fit (19 passes at 256x256, the hybrid preset's operator, batch
+     1 and 4), with the Fit the guided loop's route gives, against its
+     plain version and the eager loop it replaces, timed beside its byte
+     bound and that loop;
   4. a tiny UNet, forward and x-VJP, through the kernels on the card against
      the plain versions on the CPU;
   5. the main path at full width: the reference preset through
      ``run_restoration`` (the CLI's entry point) with a seeded random-init
      checkpoint, 20 respaced steps, one image; the kernels' launch counts are
-     zeroed just before and read just after. Then the first step's UNet
+     zeroed just before and read just after, K5's one at each step with
+     phi-only passes (here and in every osmosis chain below; none in the
+     prior, rgb_guidance and training). Then the first step's UNet
      forward and pullback, timed and FLOP-counted, seconds per warm guided
      step, and the device's busy share over one warm guided step from
      ``torch.profiler``;
@@ -30,11 +36,14 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
      UNet pullback at every 4th step, the x0 gradient between) through
      ``run_restoration`` with ddim20, one image, the same checkpoint; the
      launch counts are asserted per step kind (K3 at every step, K4 and the
-     backward resampling at the x_prev steps only) and the loaded torso's
+     backward resampling at the x_prev steps only, K5 at every step with
+     phi-only passes) and the loaded torso's
      dtypes printed;
   7. bf16 timing: seconds per warm x_prev step and per warm x0 step, the
      busy share over a warm hybrid chain, the bf16 UNet forward and forward +
-     pullback against the 989 TFLOP/s bf16 peak;
+     pullback against the 989 TFLOP/s bf16 peak; one hybrid segment at batch
+     1 (8 steps, cuDNN deterministic): K5 launched once a step, and its phi
+     against the eager twin's (K5 barred) at K5's bar;
   8. the RGBD prior sampler (``run_prior_sampling``) at full width, fp32, 20
      steps, one image: K3 at every forward, K4 never; seconds per step;
   9. rgb_guidance (vanilla DPS) through ``run_restoration``, fp32, 10 steps,
@@ -99,7 +108,8 @@ Phases, each of which raises (and so exits non-zero) on a failed check:
      the reference, x0_turbo, hybrid_turbo, haze, rgb and prior presets cut
      to ddim10 (clip_denoised; the prior: 2 images, its last 10 steps), one
      image each, scored and gated, with each preset's launch counts (K4 on
-     the x_prev steps only) and no preset failing; ``tools.seed_replicate``
+     the x_prev steps only, K5 in the SGD run of an osmosis preset) and no
+     preset failing; ``tools.seed_replicate``
      on one cell, overridden to phase 16's toy EMA and 2 scenes, its row in a
      workdir grid; the native host ops against their numpy paths (the same
      values, host ms per image);
@@ -473,6 +483,178 @@ def check_norm_kernels(gn_sites, report, k_hybrid, batch=1, suffix=""):
     return rows
 
 
+def _phi_fit_inputs(cfg, batch, seed=0):
+    """The preset's operator and guidance at ``batch`` lanes, and x0-hat, y
+    and phi at 256x256 for K5: x0-hat in [-1, 1] with a smooth depth, y a
+    dimmed copy of it plus noise."""
+    import torch
+
+    from osmosis_tpu_torch.diffusion.guided import GuidanceConfig
+    from osmosis_tpu_torch.guidance.operators import get_operator
+
+    op_kw = {k: v for k, v in cfg["measurement"]["operator"].items() if k != "name"}
+    op = get_operator(cfg["measurement"]["operator"]["name"], batch_size=batch, **op_kw)
+    gcfg = GuidanceConfig.from_config("osmosis", cfg["conditioning"]["params"],
+                                      cfg["sample_pattern"], cfg["aux_loss"])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x0 = torch.rand((batch, 256, 256, 4), generator=gen, device="cuda") * 2 - 1
+    x0[..., 3] = 0.7 * torch.linspace(-1, 1, 256, device="cuda")[None, :, None] + 0.2 * x0[..., 3]
+    y = (0.6 * x0[..., :3] - 0.2 + 0.1 * torch.randn((batch, 256, 256, 3), generator=gen,
+                                                      device="cuda")).clamp(-1, 1)
+    phi = {k: torch.as_tensor(v, device="cuda") for k, v in op.phi_init().items()}
+    return op, gcfg, x0.contiguous(), y.contiguous(), phi
+
+
+def phi_close(got, want, start, what):
+    """K5's bar (tests/test_torch_kernels_cuda.py): each phi within 1e-5 of
+    the largest step the eager loop took, or one fp32 spacing of phi."""
+    import torch
+
+    worst = 0.0
+    for k in want:
+        step = (want[k] - start[k]).abs().max().item()
+        err = (got[k] - want[k]).abs().max().item()
+        spacing = torch.finfo(torch.float32).eps * want[k].abs().max().item() if step else 0.0
+        if not err <= max(1e-5 * step, spacing):
+            raise AssertionError(f"{what}: {k} off by {err:.3g} against a step of {step:.3g}")
+        worst = max(worst, err)
+    return worst
+
+
+def eager_phi_fit(op, gcfg, x0, y, phi, n):
+    """The eager loop K5 replaces (``osmosis_guided``'s phi-only iterations,
+    each image's loss its own): ``torch.autograd.grad`` of the guidance loss,
+    then the SGD update; K5's library twin."""
+    import torch
+
+    from osmosis_tpu_torch.diffusion.guided import _make_weight_fn
+    from osmosis_tpu_torch.guidance.phi_optim import make_phi_optimizer
+
+    opt = make_phi_optimizer(op.optimizer, op.etas())
+    weight = _make_weight_fn(gcfg)
+    for _ in range(n):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in phi.items()}
+        with torch.enable_grad():
+            diff = ((y - (2.0 * op.forward(leaves, x0) - 1.0)) * weight(x0)).float()
+            loss = torch.sqrt(torch.sum(diff ** 2, dim=(1, 2, 3))).sum()
+            gs = torch.autograd.grad(loss, list(leaves.values()))
+        phi, _ = opt.update(phi, dict(zip(leaves, gs)), {})
+    return phi
+
+
+def check_phi_fit_kernel(cfg, report):
+    """K5 at the hybrid preset's settings, 256x256, 19 passes (a step's
+    phi-only iterations), batch 1 and 4, with the Fit the guided loop's
+    route gives: against its plain version (the closed form in PyTorch, on
+    the card) and the eager autograd loop it replaces; timed on the device
+    (ten calls a CUDA graph, replayed) and eagerly, beside its byte bound
+    and the eager loop's time a step (CUDA events over back-to-back calls)."""
+    import torch
+
+    from osmosis_tpu_torch.diffusion.guided import _k5_route
+    from osmosis_tpu_torch.ops import phi_fit as K5
+    from osmosis_tpu_torch.utils.timing import cuda_time_ms, graph_time_ms
+
+    n = int(cfg["sample_pattern"]["n_iter"]) - 1
+    if cfg["conditioning"]["params"]["loss_function"] != "norm":
+        raise AssertionError("K5's library twin here is the norm's eager loop")
+    out = {}
+    for batch in (1, FLEET):
+        op, gcfg, x0, y, phi = _phi_fit_inputs(cfg, batch)
+        fit = _k5_route(op, phi, x0, y, gcfg, None, True, None)
+        if fit is None:
+            raise AssertionError("K5 does not take the hybrid preset's phi fit")
+        got = K5.phi_fit(x0, y, phi, fit, n)
+        ref = K5.phi_fit_plain(x0, y, phi, fit, n)
+        lib = eager_phi_fit(op, gcfg, x0, y, phi, n)
+        torch.cuda.synchronize()
+        err = phi_close(got, ref, phi, f"K5 against its plain version, batch {batch}")
+        err_lib = phi_close(got, lib, phi, f"K5 against the eager loop, batch {batch}")
+        t_k = graph_time_ms(lambda: K5.phi_fit(x0, y, phi, fit, n))
+        t_e = cuda_time_ms(lambda: K5.phi_fit(x0, y, phi, fit, n))
+        t_p = cuda_time_ms(lambda: K5.phi_fit_plain(x0, y, phi, fit, n))
+        t_l = cuda_time_ms(lambda: eager_phi_fit(op, gcfg, x0, y, phi, n))
+        bound = (x0.numel() + y.numel()) * 4 / HBM_BYTES_PER_S * 1e3
+        g = K5.plan(256 * 256)
+        out[f"b{batch}"] = dict(passes=n, max_abs_err=err, library_max_abs_err=err_lib, ms=t_k,
+                                eager_ms=t_e, plain_ms=t_p, library_ms=t_l, bound_ms=bound,
+                                cluster=g.cluster, px=g.px, cached=g.cached)
+        log(f"  phi_fit (K5) batch {batch}, {n} passes at 256x256: err {err:.2e} (eager loop "
+            f"{err_lib:.2e}) kernel {t_k * 1e3:.1f} us (eager call {t_e * 1e3:.1f}) plain "
+            f"{t_p * 1e3:.1f} eager loop {t_l * 1e3:.1f} bound {bound * 1e3:.2f} (bytes); "
+            f"clusters of {g.cluster} CTAs, {g.px} pixels each")
+    report["phi_fit"] = out
+    return out
+
+
+def check_phi_fit_segment(model, cfg, n_steps=8):
+    """One segment of the hybrid preset at batch 1 on the bf16 torso (phi
+    unfrozen, cuDNN deterministic, clip_denoised): ``phi_fit.launches`` one a
+    step with phi-only iterations, and its phi against the eager twin's (K5
+    barred). At the first step both fit the same x0-hat, so phi meets K5's
+    bar there. After it an update whose last rounding went the other way
+    moves x, and the bf16 torso rounds the next x0-hat elsewhere, so the
+    segment's last phi is held within 1e-3 of its step (7.2e-5 on an H100,
+    PERF.md)."""
+    import torch
+
+    from osmosis_tpu_torch.diffusion import guided as G
+    from osmosis_tpu_torch.diffusion.sampler import SamplerConfig
+    from osmosis_tpu_torch.diffusion.schedules import make_schedule
+    from osmosis_tpu_torch.utils import profiling
+
+    op, _, _, y, phi0 = _phi_fit_inputs(cfg, 1, seed=5)
+    pattern = dict(cfg["sample_pattern"], update_start=1.0)
+    gcfg = G.GuidanceConfig.from_config("osmosis", cfg["conditioning"]["params"], pattern,
+                                        cfg["aux_loss"])
+    x = torch.randn((1, 256, 256, 4), generator=torch.Generator(device="cuda").manual_seed(6),
+                    device="cuda")
+    sch = make_schedule("linear", 1000, f"ddim{n_steps}")
+    names = ("guided.phi_fits", "guided.phi_fits_k5", "phi_fit.launches")
+
+    def segment():
+        before = profiling.counters()
+        res = G.guided_sample_loop(model, sch, x, y, op, gcfg, SamplerConfig(clip_denoised=True),
+                                   sample_pattern=pattern, seed=0)
+        torch.cuda.synchronize()
+        after = profiling.counters()
+        return res, {k: after[k] - before[k] for k in names}
+
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        res, counts = segment()
+        route = G._k5_route
+        G._k5_route = lambda *a: None  # K5 barred: the eager twin
+        try:
+            twin, twin_counts = segment()
+        finally:
+            G._k5_route = route
+    finally:
+        torch.backends.cudnn.deterministic = before
+    log(f"  hybrid segment at batch 1 ({n_steps} steps): K5 {counts}, its eager twin "
+        f"{twin_counts}")
+    if not counts["guided.phi_fits"] == counts["guided.phi_fits_k5"] == counts[
+            "phi_fit.launches"] == n_steps:
+        raise AssertionError(f"the hybrid segment did not run K5 at every step: {counts}")
+    if twin_counts["guided.phi_fits_k5"] or twin_counts["phi_fit.launches"]:
+        raise AssertionError(f"the eager twin ran K5: {twin_counts}")
+    first = phi_close({k: v[0] for k, v in res.phi_trace.items()},
+                      {k: v[0] for k, v in twin.phi_trace.items()}, phi0,
+                      "the first step's phi against the eager twin's")
+    last = {}
+    for k, v in res.phi_trace.items():
+        step = (twin.phi_trace[k][-1] - phi0[k]).abs().max().item()
+        last[k] = ((v[-1] - twin.phi_trace[k][-1]).abs().max().item(), step)
+        if not last[k][0] <= 1e-3 * step:
+            raise AssertionError(f"the segment's last {k} off by {last[k][0]:.3g} against a "
+                                 f"step of {step:.3g}")
+    log(f"  phi against the eager twin's: first step max err {first:.3g}; after {n_steps} steps "
+        + ", ".join(f"{k} {e:.3g} of a step of {st:.3g}" for k, (e, st) in last.items()))
+    return dict(counts=counts, twin_counts=twin_counts, first_step_max_abs_err=first,
+                last_step_err_and_step=last)
+
+
 def site_class(h):
     return "<=32x32" if h <= 32 else "64x64-128x128" if h <= 128 else "256x256"
 
@@ -513,13 +695,13 @@ def check_tiny_unet():
     t = torch.tensor([17.0, 433.0])
     g = torch.randn(2, 32, 32, 8, generator=gen)
     outs = []
-    before = tuple(read_counts().values())
+    before = tuple(read_counts()[k] for k in UNET_KERNELS)
     for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
         xd = x.to(dev).requires_grad_(True)
         y = model(xd, t.to(dev))
         (dx,) = torch.autograd.grad(y, xd, g.to(dev))
         outs.append((y.detach().cpu(), dx.cpu()))
-    after = tuple(read_counts().values())
+    after = tuple(read_counts()[k] for k in UNET_KERNELS)
     if not all(a > b for a, b in zip(after, before)):
         raise AssertionError(f"tiny UNet on the card did not launch every kernel: {before} -> {after}")
     errs = []
@@ -537,7 +719,25 @@ def check_tiny_unet():
 # shared by the full-width phases
 # ---------------------------------------------------------------------------
 
-KERNELS = ("upsample_nearest_2x", "box_sum_2x", "group_norm_forward", "group_norm_backward")
+UNET_KERNELS = ("upsample_nearest_2x", "box_sum_2x", "group_norm_forward", "group_norm_backward")
+KERNELS = UNET_KERNELS + ("phi_fit",)  # K1-K4 in the UNet, K5 in the guided step's phi fit
+
+
+def phi_fit_steps(T, last=None):
+    """K5's launches in one chain of the osmosis presets (their pcgs pattern
+    and n_iter) over ``T`` respaced steps that runs its ``last`` steps (all
+    T by default): one at each step with phi-only passes, whatever the
+    batch."""
+    import numpy as np
+
+    from osmosis_tpu_torch.config import load_yaml
+    from osmosis_tpu_torch.guidance.schedule_masks import pattern_masks
+
+    pattern = load_yaml(os.path.join(ROOT, "configs", "osmosis_sample_config.yaml"))[
+        "sample_pattern"]
+    masks = pattern_masks(pattern, T)
+    n_inner = masks["phi_warmup"] + np.where(masks["freeze_phi"], 0, int(pattern["n_iter"]) - 1)
+    return int((n_inner[:T if last is None else last] > 0).sum())  # the chain ends at t = 0
 
 
 def counters():
@@ -828,7 +1028,7 @@ def run_bf16_hybrid(workdir, checkpoint, gn_sites, ups, pools):
     expected = {"group_norm_forward": len(gn_sites) * STEPS,
                 "group_norm_backward": len(gn_sites) * full,
                 "upsample_nearest_2x": len(ups) * STEPS + len(pools) * full,
-                "box_sum_2x": len(pools) * STEPS + len(ups) * full}
+                "box_sum_2x": len(pools) * STEPS + len(ups) * full, "phi_fit": phi_fit_steps(STEPS)}
     log(f"  run_restoration: {wall:.1f} s; {STEPS} steps, {full} of them x_prev (k = {k}); "
         f"launches {launches}")
     check_counts("bf16 hybrid path", launches, expected)
@@ -921,7 +1121,8 @@ def run_prior(workdir, checkpoint, gn_sites, ups, pools, steps=20):
     log(f"  run_prior_sampling: {wall:.1f} s; launches {launches}")
     check_counts("prior sampler", launches, {
         "group_norm_forward": len(gn_sites) * steps, "group_norm_backward": 0,
-        "upsample_nearest_2x": len(ups) * steps, "box_sum_2x": len(pools) * steps})
+        "upsample_nearest_2x": len(ups) * steps, "box_sum_2x": len(pools) * steps,
+        "phi_fit": 0})
     row = check_run_dir(out, ("configurations.txt", "log.txt", "progress.json",
                               "single_images/rgb/image_0.png",
                               "single_images/depth_color/image_0.png",
@@ -948,7 +1149,7 @@ def run_rgb_guidance(workdir, checkpoint, gn_sites, ups, pools, steps=10):
     check_counts("rgb_guidance", launches, {
         "group_norm_forward": len(gn_sites) * steps, "group_norm_backward": len(gn_sites) * steps,
         "upsample_nearest_2x": (len(ups) + len(pools)) * steps,
-        "box_sum_2x": (len(ups) + len(pools)) * steps})
+        "box_sum_2x": (len(ups) + len(pools)) * steps, "phi_fit": 0})
     row = check_run_dir(out, RESTORE_FILES + ("grid_results/uw_0.png",
                                               "grid_results/uw_0_process.png"))
     log(f"  rgb_guidance run dir complete; chain_finite {row['chain_finite']}, "
@@ -991,13 +1192,14 @@ def write_depth(root, n, seed, prefix, size=(256, 320)):
             os.path.join(root, f"{prefix}_{i}.png"))
 
 
-def preset_counts(gn_sites, ups, pools, steps, full_steps):
+def preset_counts(gn_sites, ups, pools, steps, full_steps, phi_fits):
     """Launches of a run: K3 and the forward resampling at every step, K4 and
-    the backward resampling at the ``full_steps`` x_prev steps."""
+    the backward resampling at the ``full_steps`` x_prev steps, K5 at the
+    ``phi_fits`` steps with phi-only passes."""
     return {"group_norm_forward": len(gn_sites) * steps,
             "group_norm_backward": len(gn_sites) * full_steps,
             "upsample_nearest_2x": len(ups) * steps + len(pools) * full_steps,
-            "box_sum_2x": len(pools) * steps + len(ups) * full_steps}
+            "box_sum_2x": len(pools) * steps + len(ups) * full_steps, "phi_fit": phi_fits}
 
 
 def run_counted(path, what, expected, **kw):
@@ -1041,7 +1243,7 @@ def run_haze_and_simulation(workdir, checkpoint, gn_sites, ups, pools):
         path, cfg = write_preset(workdir, preset, checkpoint, data=data,
                                  timestep_respacing=STEPS)
         rd, wall, launches, peak = run_counted(
-            path, key, preset_counts(gn_sites, ups, pools, STEPS, STEPS))
+            path, key, preset_counts(gn_sites, ups, pools, STEPS, STEPS, phi_fit_steps(STEPS)))
         files = [os.path.join("single_images", d, f"{img}.png")
                  for d in ("input", "rgb", "depth_color", "depth_raw")]
         files += [f"grid_results/{img}_g0_grid.png", f"grid_results/{img}_process.png"]
@@ -1085,7 +1287,8 @@ def run_fleet(workdir, checkpoint, gn_sites, ups, pools, k_hybrid):
         path, _ = write_preset(workdir, preset, checkpoint, name=f"fleet_{key}.yaml", data=data,
                                timestep_respacing=resp, clip_denoised=True)
         rd, wall, launches, peak = run_counted(
-            path, f"fleet {key}", preset_counts(gn_sites, ups, pools, STEPS, n_full))
+            path, f"fleet {key}", preset_counts(gn_sites, ups, pools, STEPS, n_full,
+                                                phi_fit_steps(STEPS)))
         with open(os.path.join(rd, "progress.json")) as f:
             rows = [json.loads(line) for line in f if line.strip()]
         if sorted(r["image"] for r in rows) != [f"fl_{i}.png" for i in range(FLEET)] or any(
@@ -1250,7 +1453,7 @@ def run_segments_and_resume(workdir, checkpoint, gn_sites, ups, pools, k_hybrid)
     deterministic algorithms: uninterrupted, and killed after its first
     boundary and resumed, byte for byte."""
     full = len(range(0, STEPS, k_hybrid))
-    counts = preset_counts(gn_sites, ups, pools, STEPS, full)
+    counts = preset_counts(gn_sites, ups, pools, STEPS, full, phi_fit_steps(STEPS))
     out, runs = {}, {}
     for key, top in (("plain_a", {}), ("plain_b", {}), ("checkpoint", dict(chain_checkpoint=True))):
         path, _ = write_preset(workdir, "osmosis_sample_hybrid_config.yaml", checkpoint,
@@ -1273,7 +1476,8 @@ def run_segments_and_resume(workdir, checkpoint, gn_sites, ups, pools, k_hybrid)
         f"{ms['plain_a']:.1f} / {ms['plain_b']:.1f}, chain_checkpoint {ms['checkpoint']:.1f}")
 
     resumed = crash_then_resume(workdir, "osmosis_sample_hybrid_config.yaml", "seg", checkpoint,
-                                preset_counts(gn_sites, ups, pools, STEPS - 4, full - 1),
+                                preset_counts(gn_sites, ups, pools, STEPS - 4, full - 1,
+                                              phi_fit_steps(STEPS, STEPS - 4)),
                                 runs["checkpoint"], 4, "cuDNN default")
     log(f"  bf16: crash after the first boundary, resume from step 4/{STEPS}: the {len(resumed)} "
         "PNGs equal the uninterrupted run's byte for byte")
@@ -1286,11 +1490,13 @@ def run_segments_and_resume(workdir, checkpoint, gn_sites, ups, pools, k_hybrid)
                                progress_segments=4, chain_checkpoint=True,
                                save_dir=os.path.join(workdir, "seg32_checkpoint")))
     rd, _, _, _ = run_counted(path, "fp32 chain_checkpoint",
-                              preset_counts(gn_sites, ups, pools, STEPS, STEPS))
+                              preset_counts(gn_sites, ups, pools, STEPS, STEPS,
+                                            phi_fit_steps(STEPS)))
     fp32 = png_bytes(rd)
     out["fp32_checkpoint_seconds_per_step"] = check_run_dir(rd, ())["sample_seconds"] / STEPS
     resumed32 = crash_then_resume(workdir, "osmosis_sample_config.yaml", "seg32", checkpoint,
-                                  preset_counts(gn_sites, ups, pools, STEPS - 5, STEPS - 5),
+                                  preset_counts(gn_sites, ups, pools, STEPS - 5, STEPS - 5,
+                                                phi_fit_steps(STEPS, STEPS - 5)),
                                   fp32, 5, "cuDNN deterministic", sampler="ddim")
     log(f"  fp32 preset, ddim{STEPS}, chain_checkpoint (cuDNN deterministic, "
         f"{out['fp32_checkpoint_seconds_per_step'] * 1e3:.1f} ms a step): crash after the first "
@@ -1375,7 +1581,8 @@ def run_restarts(workdir, checkpoint, gn_sites, ups, pools, k_hybrid, steps=10):
         yaml.safe_dump(cfg, f)
     chains = 4  # 2 restarts x 2 global chains
     rd, wall, launches, _ = run_counted(path, "restarts", preset_counts(
-        gn_sites, ups, pools, chains * steps, chains * len(range(0, steps, k_hybrid))))
+        gn_sites, ups, pools, chains * steps, chains * len(range(0, steps, k_hybrid)),
+        chains * phi_fit_steps(steps)))
     with open(os.path.join(rd, "log.txt")) as f:
         text = f.read()
     for line in ("restart 0: final loss", "restart 1: final loss", "kept restart with final loss",
@@ -1413,7 +1620,7 @@ def train_counts(gn_sites, ups, pools, steps, remat=False):
     return {"group_norm_forward": (len(gn_sites) + again * (len(gn_sites) - 1)) * steps,
             "group_norm_backward": len(gn_sites) * steps,
             "upsample_nearest_2x": ((1 + again) * len(ups) + len(pools)) * steps,
-            "box_sum_2x": ((1 + again) * len(pools) + len(ups)) * steps}
+            "box_sum_2x": ((1 + again) * len(pools) + len(ups)) * steps, "phi_fit": 0}
 
 
 def run_training(n_params_preset, gn_sites, ups, pools):
@@ -1532,7 +1739,7 @@ def check_train_step_card_vs_cpu():
         loss.backward()
         out[dev] = (loss.item(), {n: p.grad.cpu() for n, p in m.named_parameters()})
     after = read_counts()
-    if not all(after[k] > before[k] for k in after):
+    if not all(after[k] > before[k] for k in UNET_KERNELS) or after["phi_fit"] != before["phi_fit"]:
         raise AssertionError(f"the card's train step did not launch every kernel: {before} -> {after}")
     (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out["cuda"]
     tol_loss, tol_rel, tol_top = TRAIN_TOL
@@ -1588,8 +1795,8 @@ def run_toy_loop(workdir):
         f"{report['train_steps_per_sec']} steps/s; chunk mean losses "
         f"{[round(c, 4) for c in chunks]}; launches {launches}")
     log(f"  report: {json.dumps(report)}")
-    if not all(launches.values()):
-        raise AssertionError(f"the toy run did not launch every kernel: {launches}")
+    if not all(launches[k] for k in UNET_KERNELS) or launches["phi_fit"]:
+        raise AssertionError(f"the toy run did not launch every kernel of the UNet: {launches}")
     if not chunks[-1] < 0.8 * chunks[0]:
         raise AssertionError(f"the toy loss did not fall: {chunks[0]:.4f} -> {chunks[-1]:.4f}")
 
@@ -1689,7 +1896,7 @@ def run_serve(workdir, checkpoint, gn_sites, ups, pools):
             f"before the warmup, {after[0]} after")
         with open(os.path.join(ROOT, "data", "underwater", "uw_0.png"), "rb") as f:
             img = f.read()
-        expected = preset_counts(gn_sites, ups, pools, STEPS, STEPS)
+        expected = preset_counts(gn_sites, ups, pools, STEPS, STEPS, phi_fit_steps(STEPS))
         torch.cuda.reset_peak_memory_stats()
         requests = []
         for seed in (0, 0, 1):
@@ -1996,7 +2203,8 @@ def run_multihost(workdir, checkpoint, gn_sites, ups, pools, k_hybrid):
     }
     paths, per_image, one = {}, {}, {}
     for tag, (preset, data, resp, steps, n_full, det) in cases.items():
-        per_image[tag] = preset_counts(gn_sites, ups, pools, steps, n_full)
+        per_image[tag] = preset_counts(gn_sites, ups, pools, steps, n_full,
+                                       phi_fit_steps(steps))
         for n in ("one", "two"):
             paths[tag, n], _ = write_preset(workdir, preset, checkpoint, name=f"mh_{tag}_{n}.yaml",
                                             data=data, timestep_respacing=resp, clip_denoised=True,
@@ -2070,7 +2278,8 @@ def run_multihost(workdir, checkpoint, gn_sites, ups, pools, k_hybrid):
         raise AssertionError(f"prior: the ranks sampled {owned}")
     check_rank_counts("prior", rs, {
         "group_norm_forward": len(gn_sites) * MH_STEPS, "group_norm_backward": 0,
-        "upsample_nearest_2x": len(ups) * MH_STEPS, "box_sum_2x": len(pools) * MH_STEPS})
+        "upsample_nearest_2x": len(ups) * MH_STEPS, "box_sum_2x": len(pools) * MH_STEPS,
+        "phi_fit": 0})
     log(f"  (b) prior, {MH_STEPS} steps, 2 indices on two ranks: one run dir, launches per rank "
         f"{[r['launches'] for r in rs]}")
     out["prior"] = dict(owned=owned, launches=[r["launches"] for r in rs])
@@ -2112,13 +2321,18 @@ def runbook_counts(name, entry, gn_sites, ups, pools):
     """A runbook preset's launches: RUNBOOK_STEPS steps of one image (the
     prior: RUNBOOK_PRIOR_IMAGES images, forwards only), K4 and the backward
     resampling at the x_prev steps only (x0_turbo: none; hybrid_turbo:
-    every 4th), twice where a phi stall retried the preset with adam."""
+    every 4th), twice where a phi stall retried the preset with adam; K5 at
+    the osmosis presets' steps with phi-only passes, in the SGD run alone
+    (adam keeps the eager loop; rgb is 'ps', with no phi fit)."""
     steps = RUNBOOK_STEPS
     if name == "prior":
-        return preset_counts(gn_sites, ups, pools, steps * RUNBOOK_PRIOR_IMAGES, 0)
+        return preset_counts(gn_sites, ups, pools, steps * RUNBOOK_PRIOR_IMAGES, 0, 0)
     full = {"x0_turbo": 0, "hybrid_turbo": len(range(0, steps, 4))}.get(name, steps)
     runs = 2 if entry.get("phi_stall_sgd") else 1
-    return {k: v * runs for k, v in preset_counts(gn_sites, ups, pools, steps, full).items()}
+    counts = preset_counts(gn_sites, ups, pools, steps, full, 0)
+    counts = {k: v * runs for k, v in counts.items()}
+    counts["phi_fit"] = 0 if name == "rgb" else phi_fit_steps(steps)
+    return counts
 
 
 def run_runbook(workdir, checkpoint, gn_sites, ups, pools):
@@ -2469,6 +2683,30 @@ def train_row(name, training, report):
     return row
 
 
+def phi_fit_row(phi_fit, main_path, hybrid, fleet, served, multihost, runbook):
+    """K5's row of the ``kernels`` line: phase 3's times a step (a step's
+    phi-only passes at 256x256; ``library_ms`` is the eager autograd loop it
+    replaces) and its launches in the phases that count them."""
+    b1, b4 = phi_fit["b1"], phi_fit["b4"]
+    return dict(name="phi_fit", route="cuda", source="osmosis_tpu_torch/ops/csrc/phi_fit.cu",
+                replaces="osmosis_tpu/diffusion/guided.py:397-425", passes=b1["passes"],
+                launches=main_path["launches"]["phi_fit"], max_abs_err=b1["max_abs_err"],
+                library_max_abs_err=b1["library_max_abs_err"], ms=b1["ms"],
+                eager_ms=b1["eager_ms"], plain_ms=b1["plain_ms"], bound_ms=b1["bound_ms"],
+                bound_by="bytes", library_ms=b1["library_ms"],
+                bf16_hybrid_launches=hybrid["launches"]["phi_fit"],
+                b4_max_abs_err=b4["max_abs_err"], b4_ms=b4["ms"], b4_eager_ms=b4["eager_ms"],
+                b4_plain_ms=b4["plain_ms"], b4_bound_ms=b4["bound_ms"],
+                b4_library_ms=b4["library_ms"],
+                fleet_fp32_launches=fleet["float32"]["launches"]["phi_fit"],
+                fleet_bf16_launches=fleet["bfloat16"]["launches"]["phi_fit"],
+                serve_launches_per_request=served["launches_per_request"]["phi_fit"],
+                multihost_launches_per_rank=[c["phi_fit"] for c in multihost["preset"]["launches"]],
+                runbook_launches_per_preset={p: runbook["launches"][p]["phi_fit"]
+                                             for p in RUNBOOK_PRESETS},
+                segment_launches=hybrid["phi_fit_segment"]["counts"]["phi_fit.launches"])
+
+
 def check_native_crc32c():
     """The native CRC-32C against its Python twin (and the CRC's check
     value), on buffers of every length class."""
@@ -2540,6 +2778,8 @@ def main():
     report = {}
     rows = check_resample_kernels(ups, pools, report, k_hybrid)
     rows += check_norm_kernels(gn_sites, report, k_hybrid)
+    phi_fit = check_phi_fit_kernel(
+        load_yaml(os.path.join(ROOT, "configs", "osmosis_sample_hybrid_config.yaml")), report)
 
     log("[4/21] tiny UNet: card (kernels) against CPU (plain versions), TF32 off")
     torch.backends.cudnn.allow_tf32 = False
@@ -2560,13 +2800,14 @@ def main():
             "upsample_nearest_2x": (len(ups) + len(pools)) * STEPS,
             "box_sum_2x": (len(ups) + len(pools)) * STEPS,
             "group_norm_forward": len(gn_sites) * STEPS,
-            "group_norm_backward": len(gn_sites) * STEPS})
+            "group_norm_backward": len(gn_sites) * STEPS, "phi_fit": phi_fit_steps(STEPS)})
         ckpt = main_path["checkpoint"]
 
         log(f"[6/21] bf16 fast path at full width: the hybrid preset, ddim{STEPS}, one image")
         hybrid, model, hybrid_cfg = run_bf16_hybrid(workdir, ckpt, gn_sites, ups, pools)
         log("[7/21] bf16 timing by step kind, busy share, UNet rate")
         hybrid.update(time_bf16_steps(model, hybrid_cfg))
+        hybrid["phi_fit_segment"] = check_phi_fit_segment(model, hybrid_cfg)
         del model
         log(f"  bf16 seconds per warm step: x_prev {hybrid['x_prev_seconds_per_step']:.4f}, x0 "
             f"{hybrid['x0_seconds_per_step']:.4f}; {smi}")
@@ -2704,11 +2945,14 @@ def main():
                                 for m, ranks in mesh["meshes"].items()
                                 for check in ranks[0]["checks"]},
                             **train_row(name, training, report)))
+    k5 = phi_fit_row(phi_fit, main_path, hybrid, fleet, served, multihost, runbook)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke_report.json"), "w") as f:
-        json.dump(dict(device=kind, nvidia_smi=smi, kernels=kernels, rows=rows, tiny_unet=tiny,
+        json.dump(dict(device=kind, nvidia_smi=smi, kernels=kernels + [k5], rows=rows,
+                       tiny_unet=tiny,
                        main_path=main_path, bf16_hybrid=hybrid, prior=prior, rgb_guidance=rgb,
-                       presets=presets, fleet=fleet, segments=segments, restarts=restarts,
+                       phi_fit=phi_fit, presets=presets, fleet=fleet, segments=segments,
+                       restarts=restarts,
                        training=training, toy=toy, serve=served, quality=quality,
                        multihost=multihost, runbook=runbook, mesh=mesh,
                        seconds=time.perf_counter() - t_start), f, indent=1, default=str)
@@ -2743,7 +2987,15 @@ def main():
             f"; {k['train_param_sums_ms']:.3f} / {k['train_param_sums_plain_ms']:.3f} / "
             f"{k['train_param_sums_library_ms']:.3f} / {k['train_param_sums_bound_ms']:.3f}")
         log(f"    {k['name']}: launches {k['train_launches']}{sums}")
-    print(json.dumps({"kernels": kernels}))
+    log(f"  phi_fit (K5), {k5['passes']} passes at 256x256, device ms a step (kernel / plain / "
+        f"the eager loop it replaces / bound), batch 1: {k5['ms']:.3f} / {k5['plain_ms']:.3f} / "
+        f"{k5['library_ms']:.3f} / {k5['bound_ms']:.4f}; batch {FLEET}: {k5['b4_ms']:.3f} / "
+        f"{k5['b4_plain_ms']:.3f} / {k5['b4_library_ms']:.3f} / {k5['b4_bound_ms']:.4f}; launches "
+        f"main path {k5['launches']}, bf16 hybrid {k5['bf16_hybrid_launches']}, fleet "
+        f"{k5['fleet_fp32_launches']} / {k5['fleet_bf16_launches']}, serve "
+        f"{k5['serve_launches_per_request']} a request, runbook "
+        f"{k5['runbook_launches_per_preset']}")
+    print(json.dumps({"kernels": kernels + [k5]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -55,7 +55,16 @@ each step a ``guided.step`` span holding the UNet's ``unet.forward`` and
 the step's ``guided.phi_fit`` (the warm phase and the phi-only iterations),
 ``guided.joint_grad`` and, on x_prev steps, ``guided.pullback``. The
 counters ``guided.steps``, ``guided.x_prev_steps`` (steps that pulled back
-through the UNet) and ``guided.phi_iters`` (every phi update) always count.
+through the UNet), ``guided.phi_iters`` (every phi update),
+``guided.phi_fits`` (steps with phi-only iterations) and
+``guided.phi_fits_k5`` (those that K5 ran) always count.
+
+A step's phi-only iterations run as one launch of kernel K5
+(``ops/phi_fit``) wherever it computes what the eager loop computes: CUDA
+fp32 tensors, a physics operator under SGD, and a loss whose phi gradient is
+each image's own (:func:`_k5_route` decides). Everywhere else (the CPU, Adam
+and RMSprop, a dp mesh, the joint norm over a batch) the eager loop runs
+them.
 """
 
 from __future__ import annotations
@@ -71,6 +80,7 @@ from ..guidance.losses import make_aux_loss_fn
 from ..guidance.operators import Operator, convert_depth
 from ..guidance.phi_optim import make_phi_optimizer
 from ..guidance.schedule_masks import pattern_masks
+from ..ops import phi_fit as k5
 from ..parallel.mesh import dp_mean, dp_sum, gather_batch, shard_batch
 from ..registry import CONDITIONERS
 from ..utils import profiling
@@ -240,6 +250,78 @@ def _plms_coeffs(T: int) -> np.ndarray:
                  else [23 / 12, -16 / 12, 5 / 12, 0.0] if j == 2
                  else [55 / 24, -59 / 24, 37 / 24, -9 / 24])
     return ab
+
+
+# the operators K5 takes, and their phi names in its order: a, b, inf, or
+# ab, inf where one ``phi_ab`` feeds both exponentials
+_K5_PHI = {"underwater_physical_revised": ("phi_a", "phi_b", "phi_inf"),
+           "underwater_physical": ("phi_ab", "phi_inf"),
+           "haze_physical": ("phi_ab", "phi_inf")}
+
+
+def _k5_conversion(kind, value) -> Optional[k5.Conv]:
+    """``convert_depth(d, kind, value)`` as K5's (code, v0, v1, v2), or None
+    for a conversion it lacks."""
+    if kind is not None and kind not in k5.CONVERSIONS:
+        return None
+    code = k5.CONVERSIONS.get(kind, 0)
+    if code == 0:
+        return (0, 0.0, 0.0, 0.0)
+    v = np.asarray(value, dtype=np.float64).reshape(-1)
+    if v.size != (3 if code == 1 else 1):
+        return None
+    return (code, *(float(x) for x in v), *(0.0,) * (3 - v.size))
+
+
+def _k5_route(operator: Operator, phi: Dict[str, torch.Tensor], x0: torch.Tensor,
+              y: torch.Tensor, gcfg: GuidanceConfig, eta_scale: Optional[float],
+              lane_separable: bool, mesh) -> Optional[k5.Fit]:
+    """The route of a step's phi-only iterations: the :class:`~ops.phi_fit.Fit`
+    that K5 runs them with on the card, or None where the eager loop runs
+    them. The CPU, where the JAX parity tests run, keeps the eager loop."""
+    if x0.device.type != "cuda":
+        return None
+    return _k5_fit(operator, phi, x0, y, gcfg, eta_scale, lane_separable, mesh)
+
+
+def _k5_fit(operator: Operator, phi: Dict[str, torch.Tensor], x0: torch.Tensor,
+            y: torch.Tensor, gcfg: GuidanceConfig, eta_scale: Optional[float],
+            lane_separable: bool, mesh) -> Optional[k5.Fit]:
+    """:func:`_k5_route` on any device: the Fit where K5 computes what the
+    eager loop computes, else None. It takes fp32 tensors, a physics
+    operator under SGD, a depth conversion and a loss weight it knows, phi of
+    1 or 3 entries an image, and a loss whose phi gradient is each image's
+    own: one image, a sum of per-image losses (``lane_separable``, or the
+    mse, a sum of per-image means), and no dp group to reduce over."""
+    names = _K5_PHI.get(getattr(operator, "name", None))
+    per_image = (mesh is None or mesh.dp == 1) and (
+        lane_separable or x0.shape[0] == 1 or gcfg.loss_function == "mse")
+    if (names is None or not per_image or (operator.optimizer or "sgd").lower() not in ("sgd", "gd")
+            or x0.dtype != torch.float32 or y.dtype != torch.float32 or y.device != x0.device
+            or gcfg.loss_function not in ("norm", "mse") or sorted(phi) != sorted(names)):
+        return None
+    depth = _k5_conversion(operator.depth_type, operator.depth_value)
+    if gcfg.loss_weight in (None, "none"):
+        weight = k5.ONE
+    elif gcfg.loss_weight == "depth":
+        weight = _k5_conversion(*parse_weight_function(gcfg.weight_function))
+    else:
+        weight = None
+    if depth is None or weight is None:
+        return None
+    etas = []
+    all_etas = operator.etas()
+    for name in names:
+        p = phi[name]
+        if (p.dim() != 2 or p.shape[1] not in (1, 3) or p.dtype != torch.float32
+                or p.device != x0.device):
+            return None
+        eta = np.asarray(all_etas[name], dtype=np.float32).reshape(-1)
+        if eta.size not in (1, p.shape[1]):
+            return None
+        etas.append(tuple(float(e) for e in np.broadcast_to(eta, (p.shape[1],))))
+    return k5.Fit(names, tuple(etas), depth, weight, gcfg.loss_function == "mse",
+                  None if eta_scale is None else float(eta_scale))
 
 
 def _make_weight_fn(gcfg: GuidanceConfig):
@@ -439,9 +521,17 @@ def guided_sample_loop(
             # (condition_methods.py:193-194)
             n_inner = int(masks["phi_warmup"][t]) + (0 if freeze else gcfg.n_iter - 1)
             with profiling.span("guided.phi_fit", iterations=n_inner):
-                for _ in range(n_inner):
-                    _, g_phi, _, _ = grads(x0, phi_, wrt_x0=False)
-                    phi_, st = opt.update(phi_, g_phi, st)
+                fit = None
+                if n_inner:
+                    profiling.count("guided.phi_fits")
+                    fit = _k5_route(operator, phi_, x0, y, gcfg, eta_scale, lane_separable, mesh)
+                if fit is not None:
+                    phi_ = k5.phi_fit(x0.contiguous(), y.contiguous(), phi_, fit, n_inner)
+                    profiling.count("guided.phi_fits_k5")
+                else:
+                    for _ in range(n_inner):
+                        _, g_phi, _, _ = grads(x0, phi_, wrt_x0=False)
+                        phi_, st = opt.update(phi_, g_phi, st)
             with profiling.span("guided.joint_grad"):
                 g_x0, g_phi, sep, aux_vec = grads(x0, phi_, wrt_x0=True)
                 if not freeze:

@@ -1,2 +1,2 @@
-"""Hand-written Hopper kernels (K1-K4, CUDA C++ in ``csrc/``), each beside
+"""Hand-written Hopper kernels (K1-K5, CUDA C++ in ``csrc/``), each beside
 its plain PyTorch version."""

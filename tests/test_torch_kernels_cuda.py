@@ -1,4 +1,4 @@
-"""The port's hand-written kernels (K1-K4) against their plain versions, on a
+"""The port's hand-written kernels (K1-K5) against their plain versions, on a
 CUDA card. Every test here needs the card (marker ``cuda``) and skips without
 one. On the machine with the card, where JAX is absent, run:
 
@@ -7,7 +7,11 @@ one. On the machine with the card, where JAX is absent, run:
 Tolerances: K1/K2 exact (a copy, or an fp32 sum in the plain version's order);
 K3/K4 fp32 1e-4 relative to the largest value (order of summation), bf16 3e-2.
 K3/K4 run in both their geometries (``MAX_CLUSTER = 0`` forces the two-launch
-one) and must give the same bits on a second call.
+one) and must give the same bits on a second call. K5 (the phi fit) against
+the eager autograd loop it replaces: phi within 1e-5 of the largest step that
+loop took, or one fp32 spacing of phi (the gradient's sums in another order
+and precision can turn an update's last rounding), the same bits on a second
+call.
 """
 
 import pytest
@@ -265,3 +269,218 @@ def test_tiny_train_step_through_the_kernels_matches_the_cpu(cuda):
     for n, g in g_cpu.items():
         err = (g_gpu[n] - g).abs().max().item()
         assert err <= 1e-3 * g.abs().max().item() + 1e-5 * top, (n, err)
+
+
+# ---------------------------------------------------------------------------
+# K5: the phi-only fit of a guided step (ops/phi_fit)
+# ---------------------------------------------------------------------------
+
+K5_ETA = 5e-5  # the hybrid preset's learning rate
+K5_OPERATORS = {
+    "underwater_physical_revised": dict(
+        depth_type="gamma", value="1.4,1.4,1", phi_a="1.1,0.95,0.95", phi_b="0.95,0.8,0.8",
+        phi_inf="0.14,0.29,0.49"),
+    "underwater_physical": dict(depth_type="original", phi_ab="1.1,0.95,0.95",
+                                phi_inf="0.2,0.4,0.7"),
+    "haze_physical": dict(depth_type="gamma", value="1.4,1.4,1", phi_ab=1.0,
+                          phi_inf="0.14,0.29,0.49"),
+}
+
+
+def _k5_operator(name, batch):
+    from osmosis_tpu_torch.guidance.operators import get_operator
+
+    kw = dict(K5_OPERATORS[name], optimizer="sgd")
+    for k in [k for k in kw if k.startswith("phi_")]:
+        kw[f"{k}_eta"], kw[f"{k}_learn_flag"] = K5_ETA, True
+    return get_operator(name, batch_size=batch, **kw)
+
+
+def _k5_gcfg(loss, weight, n_iter=20, warm=0):
+    from osmosis_tpu_torch.diffusion.guided import GuidanceConfig
+
+    params = dict(loss_function=loss, loss_weight=weight, weight_function="gamma,1.4,1.4,1",
+                  scale="0.3", gradient_x_prev=False)
+    pattern = dict(pattern="pcgs", update_start=0.7, update_end=0, global_N=1, local_M=1,
+                   s_start=1, s_end=0, n_iter=n_iter, start_guidance=1, stop_guidance=0,
+                   phi_warmup_iters=warm)
+    return GuidanceConfig.from_config("osmosis", params, pattern, None), pattern
+
+
+def _k5_data(dev, b, hw=256, seed=0, w=None):
+    """x0-hat in [-1, 1] with a smooth depth channel, and y a degraded copy
+    plus noise, so that phi has somewhere to go."""
+    w = hw if w is None else w
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x0 = torch.rand(b, hw, w, 4, device=dev, generator=g) * 2 - 1
+    ramp = torch.linspace(-1, 1, hw, device=dev)
+    x0[..., 3] = 0.7 * ramp[None, :, None] + 0.2 * x0[..., 3]
+    y = 0.6 * x0[..., :3] + 0.1 * torch.randn(b, hw, w, 3, device=dev, generator=g) - 0.2
+    return x0.contiguous(), y.clamp(-1, 1).contiguous()
+
+
+def _eager_phi_fit(op, gcfg, x0, y, phi, n, eta_scale):
+    """The eager loop K5 replaces (``osmosis_guided``'s phi-only iterations):
+    ``torch.autograd.grad`` of the per-image guidance loss, then the SGD
+    update (scaled as ``guided_sample_loop`` scales it)."""
+    from osmosis_tpu_torch.diffusion.guided import _make_weight_fn
+    from osmosis_tpu_torch.guidance.phi_optim import make_phi_optimizer
+
+    opt = make_phi_optimizer(op.optimizer, op.etas())
+    weight = _make_weight_fn(gcfg)
+    for _ in range(n):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in phi.items()}
+        with torch.enable_grad():
+            diff = ((y - (2.0 * op.forward(leaves, x0) - 1.0)) * weight(x0)).float()
+            if gcfg.loss_function == "norm":
+                loss = torch.sqrt(torch.sum(diff ** 2, dim=(1, 2, 3))).sum()
+            else:
+                loss = torch.mean(diff ** 2, dim=(1, 2, 3)).sum()
+            gs = torch.autograd.grad(loss, list(leaves.values()))
+        new, _ = opt.update(phi, dict(zip(leaves, gs)), {})
+        if eta_scale is not None:
+            s = torch.tensor(float(eta_scale), dtype=torch.float32, device=x0.device)
+            new = {k: phi[k] + s * (new[k] - phi[k]) for k in phi}
+        phi = new
+    return phi
+
+
+def _k5_close(got, want, start, what):
+    """Each name's phi within 1e-5 of the largest step the eager loop took,
+    or one fp32 spacing of phi (an update whose last rounding went the other
+    way); exact where the loop took no step."""
+    for k in want:
+        step = (want[k] - start[k]).abs().max().item()
+        err = (got[k] - want[k]).abs().max().item()
+        spacing = torch.finfo(torch.float32).eps * want[k].abs().max().item() if step else 0.0
+        print(f"K5 {what} {k}: step {step:.4g}, max err {err:.3g}")
+        assert got[k].shape == want[k].shape and torch.isfinite(got[k]).all(), (what, k)
+        assert err <= max(1e-5 * step, spacing), (what, k, err, step)
+
+
+def _k5_fit(op, phi, x0, y, gcfg, eta_scale):
+    """The guided loop's route for these inputs, lane-separable: K5's Fit."""
+    from osmosis_tpu_torch.diffusion.guided import _k5_route
+
+    fit = _k5_route(op, phi, x0, y, gcfg, eta_scale, True, None)
+    assert fit is not None
+    return fit
+
+
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("weight", ["depth", "none"])
+@pytest.mark.parametrize("loss", ["norm", "mse"])
+@pytest.mark.parametrize("name", list(K5_OPERATORS))
+def test_phi_fit_kernel_matches_the_eager_loop(cuda, name, loss, weight, b):
+    from osmosis_tpu_torch.ops import phi_fit as K5
+
+    op, (gcfg, _) = _k5_operator(name, b), _k5_gcfg(loss, weight)
+    x0, y = _k5_data(cuda, b, seed=b)
+    phi = {k: torch.as_tensor(v, device=cuda) for k, v in op.phi_init().items()}
+    fit = _k5_fit(op, phi, x0, y, gcfg, None)
+    n0 = profiling.counters()["phi_fit.launches"]
+    got = K5.phi_fit(x0, y, phi, fit, 19)
+    assert profiling.counters()["phi_fit.launches"] == n0 + 1
+    want = _eager_phi_fit(op, gcfg, x0, y, phi, 19, None)
+    _k5_close(got, want, phi, f"{name} {loss} {weight} B={b}")
+    again = K5.phi_fit(x0, y, phi, fit, 19)
+    assert all(torch.equal(again[k], got[k]) for k in got)  # no atomics: the same bits
+
+
+@pytest.mark.parametrize("n", [1, 19])
+@pytest.mark.parametrize("eta_scale", [None, 0.5, 0.0])
+def test_phi_fit_kernel_under_eta_scale(cuda, eta_scale, n):
+    from osmosis_tpu_torch.ops import phi_fit as K5
+
+    name = "underwater_physical_revised"
+    op, (gcfg, _) = _k5_operator(name, 1), _k5_gcfg("norm", "depth")
+    x0, y = _k5_data(cuda, 1, seed=7)
+    phi = {k: torch.as_tensor(v, device=cuda) for k, v in op.phi_init().items()}
+    inputs = {k: v.clone() for k, v in phi.items()}
+    got = K5.phi_fit(x0, y, phi, _k5_fit(op, phi, x0, y, gcfg, eta_scale), n)
+    want = _eager_phi_fit(op, gcfg, x0, y, phi, n, eta_scale)
+    _k5_close(got, want, phi, f"eta_scale {eta_scale} n {n}")
+    assert all(torch.equal(phi[k], inputs[k]) for k in phi)  # the inputs are not written
+    if eta_scale == 0.0:
+        assert all(torch.equal(got[k], phi[k]) for k in phi)
+
+
+# ragged sizes (clusters of 1 and 4 CTAs, one pixel a row), and 256x256
+# with clusters of 8 and shared memory for part of each CTA's pixels only
+@pytest.mark.parametrize("b,h,w,max_cluster,smem", [
+    (1, 40, 48, 16, None), (2, 100, 70, 16, None), (1, 33, 1, 16, None),
+    (1, 256, 256, 8, 64 * 1024), (2, 256, 256, 16, 48 * 1024)])
+def test_phi_fit_kernel_at_other_geometries(cuda, monkeypatch, b, h, w, max_cluster, smem):
+    from osmosis_tpu_torch.ops import phi_fit as K5
+
+    monkeypatch.setattr(K5, "MAX_CLUSTER", max_cluster)
+    if smem is not None:
+        monkeypatch.setattr(K5, "SMEM_BYTES", smem)
+    K5._device_plan.cache_clear()
+    try:
+        op, (gcfg, _) = _k5_operator("underwater_physical_revised", b), _k5_gcfg("norm", "depth")
+        x0, y = _k5_data(cuda, b, hw=h, w=w, seed=h + w)
+        phi = {k: torch.as_tensor(v, device=cuda) for k, v in op.phi_init().items()}
+        got = K5.phi_fit(x0, y, phi, _k5_fit(op, phi, x0, y, gcfg, None), 19)
+        torch.cuda.synchronize()
+        g = K5._device_plan(x0.device.index or 0, h * w, False, max_cluster)
+    finally:
+        K5._device_plan.cache_clear()
+    assert g.cluster <= max_cluster and (smem is None or g.cached < g.px)
+    want = _eager_phi_fit(op, gcfg, x0, y, phi, 19, None)
+    _k5_close(got, want, phi, f"{b}x{h}x{w} cluster {g.cluster} cached {g.cached}/{g.px}")
+
+
+@pytest.mark.parametrize("b", [1, 4])
+def test_guided_chain_through_k5_matches_the_eager_twin(cuda, monkeypatch, b):
+    """A guided chain at 256x256 whose phi unfreezes with a warm phase (10
+    extra passes: 29 at that step, 19 after), at batch 1 and as the fleet's
+    lane-separable batch 4: K5 at every step with phi-only passes, and the
+    phi trace of the eager twin (K5 barred) within 1e-5 of its step."""
+    from osmosis_tpu_torch.diffusion import guided as G
+    from osmosis_tpu_torch.diffusion.sampler import SamplerConfig
+    from osmosis_tpu_torch.diffusion.schedules import make_schedule
+
+    op = _k5_operator("underwater_physical_revised", b)
+    gcfg, pattern = _k5_gcfg("norm", "depth", warm=10)
+    x, y = _k5_data(cuda, b, seed=3)
+    sch = make_schedule("linear", 1000, "6")
+
+    def model(xt, t):
+        return torch.cat([0.3 * xt + 1e-4 * t.float().reshape(-1, 1, 1, 1), 0.1 * xt], dim=-1)
+
+    def chain():
+        before = profiling.counters()
+        res = G.guided_sample_loop(model, sch, x, y, op, gcfg, SamplerConfig(clip_denoised=True),
+                                 sample_pattern=pattern, deterministic=True,
+                                 lane_separable=b > 1)
+        after = profiling.counters()
+        return res, {k: after[k] - before[k] for k in
+                     ("guided.phi_fits", "guided.phi_fits_k5", "phi_fit.launches")}
+
+    res, counts = chain()
+    assert counts["guided.phi_fits"] > 0
+    assert counts["guided.phi_fits_k5"] == counts["phi_fit.launches"] == counts["guided.phi_fits"]
+    monkeypatch.setattr(G, "_k5_route", lambda *a: None)
+    twin, counts = chain()
+    assert counts["guided.phi_fits_k5"] == counts["phi_fit.launches"] == 0
+    start = {k: torch.as_tensor(v, device=cuda) for k, v in op.phi_init().items()}
+    _k5_close({k: v[-1] for k, v in res.phi_trace.items()},
+              {k: v[-1] for k, v in twin.phi_trace.items()}, start, f"chain B={b}")
+
+
+def test_phi_fit_kernel_rejects_what_it_does_not_take(cuda):
+    from osmosis_tpu_torch.ops import phi_fit as K5
+
+    op, (gcfg, _) = _k5_operator("underwater_physical_revised", 1), _k5_gcfg("norm", "depth")
+    x0, y = _k5_data(cuda, 1, hw=32)
+    phi = {k: torch.as_tensor(v, device=cuda) for k, v in op.phi_init().items()}
+    fit = _k5_fit(op, phi, x0, y, gcfg, None)
+    with pytest.raises(TypeError):
+        K5.phi_fit(x0.bfloat16(), y, phi, fit, 2)
+    with pytest.raises(ValueError):
+        K5.phi_fit(x0.transpose(1, 2), y, phi, fit, 2)
+    with pytest.raises(ValueError):
+        K5.phi_fit(x0[..., :3].contiguous(), y, phi, fit, 2)
+    with pytest.raises(ValueError):
+        K5.phi_fit(x0, torch.cat([y, y[..., :1]], dim=-1), phi, fit, 2)
