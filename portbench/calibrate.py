@@ -25,7 +25,7 @@ ROOT = os.path.dirname(HERE)
 
 def control_kwargs(cell, seed):
     """``Cell.run``'s arguments that put the configuration's control in the
-    program's place: the reference UNet, its products' operands rounded to
+    program's place: the reference model, its products' operands rounded to
     TF32 (on a card: cuDNN and cuBLAS in TF32) or to fp8, and the reference's
     chain segment with its later stages in ``control["stages"]``."""
     import torch
@@ -35,12 +35,12 @@ def control_kwargs(cell, seed):
     quant = None if on_card_tf32 else getattr(lowp, ctl["unet"])
     dtype = getattr(torch, ctl["stages"])
 
-    def swap_segment(_program_segment, unet):
+    def swap_segment(_program_segment, model):
         def seg(x, y, seed_, phi, opt, ts, buf):
-            return chain.segment(cell.P, unet, x, y, seed_, phi, ts, buf, dtype=dtype)
+            return chain.segment(cell.P, model, x, y, seed_, phi, ts, buf, dtype=dtype)
         return seg
 
-    return dict(swap_model=lambda _m: cell.reference_unet(seed).set_quant(quant),
+    return dict(swap_model=lambda _m: cell.reference(seed).set_quant(quant),
                 swap_segment=swap_segment, tf32=on_card_tf32)
 
 

@@ -4,6 +4,24 @@ of what the window produced against the plain reference.
 A cell is a configuration (``configs/<name>.json``: the preset as it is run,
 its arithmetic, its limits) under a traffic mix (``traffic/<name>.json``),
 paired by an entry of ``BENCHMARK.json``'s ``workloads``.
+
+What the harness knows of the model is its family's, ``families/<family>.py``
+in the run's home, named by the configuration's ``family`` key (absent:
+``adm_unet``). A family module gives:
+
+  * ``sizes(config, overrides)``: the model's sizes from the configuration,
+    with the tests' smaller ``overrides``; they have ``image_size``, and the
+    readers get them as ``ctx.arch``;
+  * ``torso_dtype(config)``: the dtype the program's model computes in;
+  * ``program(config, sizes, overrides, seed, device)``: the program's model,
+    built through the port's own constructors, filled with the seeded
+    weights (``harness/weights.py`` under the family's rule) and cast and
+    laid out as the port's restore path does: ``model(x, t)`` takes x_t
+    [B, H, W, 4] and gives eps and the variance channels [B, H, W, 8];
+  * ``reference(sizes, seed, device)``: the plain fp32 model with the same
+    bits and the same call, whose ``set_quant(q)`` rounds its products'
+    operands (the control);
+  * ``flop(sizes, batch)``: the (forward, x-only pullback) FLOP of one call.
 """
 
 from __future__ import annotations
@@ -20,9 +38,8 @@ from typing import Callable, Dict, List, Optional
 import torch
 
 from reference.diffusion import Preset, check_step
-from reference.unet import Arch, UNet
 
-from . import host, program, trace as tr, traffic as tf, weights
+from . import host, load, program, trace as tr, traffic as tf
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -33,9 +50,9 @@ def load_json(*parts) -> dict:
 
 
 class Tap:
-    """The UNet as the chain calls it. At a recorded window step it keeps the
+    """The model as the chain calls it. At a recorded window step it keeps the
     step's input x_t and output, and on an x_prev step the gradients that the
-    step's pullback passes at the UNet's output (the cotangent) and at x_t
+    step's pullback passes at the model's output (the cotangent) and at x_t
     (the pullback before its clip); at the step after, its input (x_{t-1}).
     References only: nothing is copied and nothing waits for the device.
 
@@ -158,7 +175,7 @@ class Outcome:
 
 
 class Cell:
-    def __init__(self, name: str, bench: dict, device, unet_overrides: Optional[dict] = None,
+    def __init__(self, name: str, bench: dict, device, overrides: Optional[dict] = None,
                  home: str = HERE):
         entry = {w["name"]: w for w in bench["workloads"]}[name]
         self.name, self.entry = name, entry
@@ -166,31 +183,20 @@ class Cell:
         self.mix = load_json(home, "traffic", entry["traffic"] + ".json")
         self.preset = self.config["preset"]
         self.P = Preset.from_dict(self.preset)
-        self.overrides = dict(unet_overrides or {})
-        self.arch = Arch.from_preset(self.preset["unet_model"], **{
-            k: tuple(v) if isinstance(v, list) else v for k, v in self.overrides.items()
-            if k in ("image_size", "model_channels", "num_res_blocks", "channel_mult",
-                     "num_head_channels")})
-        if "attention_resolutions" in self.overrides:
-            self.arch = dataclasses.replace(self.arch, attention_ds=tuple(
-                self.arch.image_size // r for r in self.overrides["attention_resolutions"]))
+        self.family = load(home, "families", self.config.get("family", "adm_unet"))
+        self.overrides = dict(overrides or {})
+        self.arch = self.family.sizes(self.config, self.overrides)
+        self.dtype = self.family.torso_dtype(self.config)
         self.device = torch.device(device)
         self.lanes = int(self.mix["lanes"])
 
-    def _port_overrides(self):
-        """The same sizes for the port's ``unet_config_from_yaml``."""
-        o = dict(self.overrides)
-        if "attention_resolutions" in o:
-            o["attention_resolutions"] = tuple(
-                self.arch.image_size // r for r in o["attention_resolutions"])
-        if "channel_mult" in o:
-            o["channel_mult"] = tuple(o["channel_mult"])
-        return o
+    def program(self, seed: int) -> torch.nn.Module:
+        """The program's model, filled from ``seed``."""
+        return self.family.program(self.config, self.arch, self.overrides, seed, self.device)
 
-    def reference_unet(self, seed: int) -> UNet:
-        with torch.device(self.device):
-            ref = UNet(self.arch)
-        return weights.fill(ref, seed).requires_grad_(False).eval()
+    def reference(self, seed: int) -> torch.nn.Module:
+        """The plain reference model, filled with the program's bits."""
+        return self.family.reference(self.arch, seed, self.device)
 
     def run(self, seed: int, seconds: float, trace: bool = False, t_start: Optional[float] = None,
             swap_model: Optional[Callable] = None, swap_segment: Optional[Callable] = None,
@@ -198,15 +204,15 @@ class Cell:
         """Set up, warm up, measure for ``seconds`` (to the next segment
         boundary), with ``trace`` trace the segments that follow, then check
         the window's recorded steps. ``swap_model(model)`` and
-        ``swap_segment(segment, unet)`` put something else in the program's
+        ``swap_segment(segment, model)`` put something else in the program's
         place (the control, a planted fault); ``tf32`` runs the program with
         TF32 on."""
         t_start = time.perf_counter() if t_start is None else t_start
         dev, cuda = self.device, self.device.type == "cuda"
-        st = program.settings(self.preset, dev)
+        st = program.settings(self.dtype, dev)
         if cuda:
             program.set_tf32(tf32)
-        model = program.build_unet(self.preset, seed, dev, self._port_overrides())
+        model = self.program(seed)
         tap = Tap(swap_model(model) if swap_model else model)
         segment = program.build_chain(self.preset, tap, self.lanes)
         if swap_segment:
@@ -321,7 +327,7 @@ class Cell:
         """The largest gap of each compared quantity over the recorded steps."""
         if self.device.type == "cuda":
             program.set_tf32(False)
-        ref = self.reference_unet(seed)
+        ref = self.reference(seed)
         worst: Dict[str, float] = {}
         for rec in records:
             for k, v in check_step(self.P, ref, rec, rec["y"], rec["cs"]).items():

@@ -1,17 +1,15 @@
 """The system under test, built from a preset dict the way the port's
 ``pipelines.restore.run_restoration`` builds it from its YAML: the schedule,
-the sampler and guidance configurations, the operator, and the UNet from
-``unet_config_from_yaml`` (channels_last, frozen, cast to bf16 with
-``cast_params_half`` where the preset sets ``use_fp16``), with TF32 off and
+the sampler and guidance configurations and the operator, with TF32 off and
 cuDNN's algorithms chosen by the port's own rule for a run without
 ``chain_checkpoint``. The chain entry is the one ``run_restoration`` calls:
 ``guided_sample_loop`` at batch 1, ``make_batched_segment_runner`` for a
-fleet, one segment (``ts=``) per call.
+fleet, one segment (``ts=``) per call. The model it calls is the family's
+(``families/<family>.py``).
 """
 
 from __future__ import annotations
 
-import dataclasses
 from types import SimpleNamespace
 
 import torch
@@ -20,19 +18,14 @@ from osmosis_tpu_torch.diffusion.guided import GuidanceConfig, guided_sample_loo
 from osmosis_tpu_torch.diffusion.sampler import SamplerConfig
 from osmosis_tpu_torch.diffusion.schedules import make_schedule
 from osmosis_tpu_torch.guidance.operators import get_operator
-from osmosis_tpu_torch.models.convert import cast_params_half
-from osmosis_tpu_torch.models.unet import UNetModel, unet_config_from_yaml
 from osmosis_tpu_torch.parallel.runner import make_batched_segment_runner
 from osmosis_tpu_torch.pipelines import restore
 
-from . import weights
 
-
-def settings(preset: dict, device: torch.device) -> SimpleNamespace:
-    """The arithmetic a run of ``preset`` takes on ``device``: the torso
-    dtype, TF32 (off on a card, as ``run_restoration`` sets it) and cuDNN's
-    algorithms."""
-    dtype = torch.bfloat16 if preset["unet_model"].get("use_fp16") else torch.float32
+def settings(dtype: torch.dtype, device: torch.device) -> SimpleNamespace:
+    """The arithmetic a run with the torso dtype ``dtype`` takes on
+    ``device``: TF32 (off on a card, as ``run_restoration`` sets it) and
+    cuDNN's algorithms."""
     deterministic = restore.cudnn_deterministic(device, dtype, chain_checkpoint=False)
     return SimpleNamespace(dtype=dtype, deterministic=deterministic,
                            algorithms=restore.algorithms_str(device, deterministic),
@@ -45,20 +38,6 @@ cudnn_algorithms = restore.cudnn_algorithms
 def set_tf32(on: bool):
     torch.backends.cudnn.allow_tf32 = on
     torch.backends.cuda.matmul.allow_tf32 = on
-
-
-def build_unet(preset: dict, seed: int, device, unet_overrides=None) -> torch.nn.Module:
-    """The port's UNet of ``preset``, built on ``device`` and filled with the
-    seeded weights (:mod:`weights`) before its bf16 cast."""
-    dtype = settings(preset, torch.device(device)).dtype
-    cfg = unet_config_from_yaml(preset["unet_model"], **(unet_overrides or {}))
-    with torch.device(device):
-        model = UNetModel(dataclasses.replace(cfg, dtype=dtype))
-    weights.fill(model, seed)
-    if dtype != torch.float32:
-        cast_params_half(model, dtype)
-    model.requires_grad_(False).eval()
-    return model.to(memory_format=torch.channels_last)
 
 
 def build_chain(preset: dict, model_fn, lanes: int):

@@ -14,12 +14,11 @@ segments (pass A, which runs with the spans off, as the window does):
     operations to the innermost span that holds its midpoint, or to
     ``OUTSIDE``.
 
-The readers' context holds neither the cell nor the seed, so
-:func:`passes` takes them from ``run.run_cell``'s frame. The window's
-program is gone by then, so it builds the program again from the same seed,
-warms it up on one segment, runs both passes from one ``Driver``, and
-keeps the result on the context for the other readers. A program without
-spans gives None, and so does every reader of them.
+:func:`passes` takes the cell and the seed from the readers' context. The
+window's program is gone by then, so it builds the program again from the
+same seed, warms it up on one segment, runs both passes from one
+``Driver``, and keeps the result on the context for the other readers. A
+program without spans gives None, and so does every reader of them.
 """
 
 from __future__ import annotations
@@ -27,7 +26,6 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
-import sys
 import time
 import traceback
 from collections import defaultdict
@@ -215,18 +213,6 @@ def _profiling():
     return profiling if all(hasattr(profiling, n) for n in need) else None
 
 
-def _run_of(ctx):
-    """The Cell and seed of the run whose outcome ``ctx`` holds, from
-    ``run.run_cell``'s frame."""
-    f = sys._getframe(1)
-    while f is not None:
-        loc = f.f_locals
-        if f.f_code.co_name == "run_cell" and loc.get("out") is ctx.outcome:
-            return loc.get("cell"), loc.get("seed")
-        f = f.f_back
-    return None, None
-
-
 def passes(ctx) -> Optional[Passes]:
     """Passes B and C of the run that ``ctx`` reads, run once and kept on
     ``ctx``; None without a trace, without spans in the program or where
@@ -235,7 +221,7 @@ def passes(ctx) -> Optional[Passes]:
     if not hasattr(ctx, "span_passes"):
         ctx.span_passes = None
         profiling = _profiling()
-        cell, seed = _run_of(ctx)
+        cell, seed = getattr(ctx, "cell", None), getattr(ctx, "seed", None)
         if ctx.trace is not None and profiling is not None and cell is not None:
             try:
                 ctx.span_passes = run_passes(cell, seed, profiling)
@@ -275,10 +261,10 @@ def run_passes(cell, seed: int, profiling) -> Passes:
 
     dev = cell.device
     cuda = dev.type == "cuda"
-    st = program.settings(cell.preset, dev)
+    st = program.settings(cell.dtype, dev)
     if cuda:
         program.set_tf32(False)
-    model = program.build_unet(cell.preset, seed, dev, cell._port_overrides())
+    model = cell.program(seed)
     segment = program.build_chain(cell.preset, model, cell.lanes)
     traffic = tf.Traffic(cell.mix, cell.P, cell.arch.image_size, seed, dev)
     k = traffic.x_prev_every if cell.P.gradient_x_prev else 0

@@ -26,7 +26,6 @@ import time
 T0 = time.perf_counter()
 
 import argparse  # noqa: E402
-import importlib.util  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
@@ -50,11 +49,8 @@ def metric_names(bench: dict, section: str, cell: str):
 
 def reader(home: str, name: str):
     """``read(ctx)`` of ``<home>/metrics/<name>.py``."""
-    path = os.path.join(home, "metrics", name + ".py")
-    spec = importlib.util.spec_from_file_location(f"portbench_metric_{name}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    from harness import load
+    return load(home, "metrics", name).read
 
 
 def power_limit() -> str:
@@ -68,23 +64,26 @@ def power_limit() -> str:
 
 
 def run_cell(bench: dict, workload: str, seed: int, seconds: float, trace: bool, device: str,
-             home: str = HERE, t_start: float = T0, unet_overrides=None) -> dict:
+             home: str = HERE, t_start: float = T0, overrides=None) -> dict:
     """One run of ``workload`` on ``device``: prints the run's facts, the
     compared numbers (standard error) and the result line, and returns the
-    result. ``home`` holds the cell's configuration, traffic and metric
-    files; ``unet_overrides`` (a smaller UNet) serves the harness's tests."""
+    result. ``home`` holds the cell's configuration, family, traffic and
+    metric files; ``overrides`` (a smaller model) serves the harness's
+    tests. The readers' context holds the outcome, its trace, the cell, the
+    seed, the cell's family and its sizes (``arch``), the card's peaks and
+    the torso's dtype."""
     import torch
     from harness.cell import Cell
-    from yardstick.unet_cost import peaks
+    from yardstick.peaks import peaks
 
-    cell = Cell(workload, bench, device, unet_overrides, home=home)
+    cell = Cell(workload, bench, device, overrides, home=home)
     out = cell.run(seed, seconds, trace=trace, t_start=t_start)
     cuda = cell.device.type == "cuda"
     kind = torch.cuda.get_device_name(cell.device) if cuda else "cpu"
     chips = int(cell.entry["chips"])
-    ctx = SimpleNamespace(outcome=out, trace=out.trace, arch=cell.arch,
-                          peaks=peaks(kind) if cuda else None,
-                          torso="bf16" if cell.preset["unet_model"].get("use_fp16") else "fp32")
+    ctx = SimpleNamespace(outcome=out, trace=out.trace, cell=cell, seed=seed, family=cell.family,
+                          arch=cell.arch, peaks=peaks(kind) if cuda else None,
+                          torso="bf16" if cell.dtype == torch.bfloat16 else "fp32")
     units = {m["name"]: m["unit"] for m in bench["end_to_end"] + bench["per_layer"]}
     metrics = {}
     for name in metric_names(bench, "per_layer" if trace else "end_to_end", workload):

@@ -12,7 +12,7 @@ from conftest import TINY
 @pytest.mark.parametrize("cell", ["ref_fp32_b1", "hybrid_bf16_b1", "hybrid_bf16_fleet4"])
 def test_cell_on_card(bench, card, capsys, cell):
     import run
-    result = run.run_cell(bench, cell, 3, 1.0, True, card, unet_overrides=TINY)
+    result = run.run_cell(bench, cell, 3, 1.0, True, card, overrides=TINY)
     capsys.readouterr()
     assert result["correct"], result["checks"]
     assert result["device"]["platform"] == "gpu" and result["device"]["busy_s"] > 0

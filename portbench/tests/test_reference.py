@@ -10,12 +10,11 @@ from conftest import TINY
 
 @pytest.mark.parametrize("config", ["osmosis_ref_fp32", "osmosis_hybrid_bf16"])
 def test_unet_against_port(bench, config):
-    from harness import program
     from harness.cell import Cell
     cell = Cell({"osmosis_ref_fp32": "ref_fp32_b1"}.get(config, "hybrid_bf16_b1"), bench, "cpu",
                 TINY)
-    port = program.build_unet(cell.preset, 77, "cpu", cell._port_overrides())
-    ref = cell.reference_unet(77)
+    port = cell.program(77)
+    ref = cell.reference(77)
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(2, 32, 32, 4, generator=gen)
     t = torch.tensor([700.0, 20.0])

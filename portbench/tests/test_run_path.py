@@ -14,7 +14,7 @@ RESULT_KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 def run(bench, capsys, cell, trace, **kw):
     import run as runner
     result = runner.run_cell(bench, cell, 2 ** 31 + 12345, 1.0, trace, "cpu",
-                             unet_overrides=TINY, **kw)
+                             overrides=TINY, **kw)
     out, err = capsys.readouterr()
     last = json.loads(out.strip().splitlines()[-1])
     assert last == json.loads(json.dumps(result))

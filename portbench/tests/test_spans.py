@@ -212,7 +212,7 @@ def test_traced_run_reads_the_spans_after_pass_a(bench, capsys, monkeypatch):
 
     monkeypatch.setattr(Cell, "run", run_a)
     result = run.run_cell(bench, "hybrid_bf16_fleet4", 2 ** 31 + 4321, 1.0, True, "cpu",
-                          unet_overrides=TINY)
+                          overrides=TINY)
     out = capsys.readouterr().out
     assert during_a == [] and result["correct"]
     assert {"phi_fit_ms_per_step", "unet_host_ms_per_step", "pullback_ms_per_xprev",

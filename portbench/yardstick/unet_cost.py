@@ -10,23 +10,9 @@ computes it, so a change of implementation leaves them as they are.
 
 from __future__ import annotations
 
-import json
-import os
 from typing import List, Tuple
 
 from reference.unet import Arch, plan
-
-PEAKS_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "peaks.json")
-
-
-def peaks(kind: str) -> dict:
-    """The published peaks of the card named ``kind`` (``peaks.json``)."""
-    with open(PEAKS_FILE) as f:
-        table = json.load(f)
-    for key, row in table.items():
-        if key in kind:
-            return row
-    raise KeyError(f"no peaks for {kind!r} in {PEAKS_FILE}")
 
 
 def _layers(arch: Arch):
