@@ -1005,6 +1005,7 @@ def run_bf16_hybrid(workdir, checkpoint, gn_sites, ups, pools):
     kind. Returns the phase's numbers and the model ``run_restoration`` loaded."""
     import torch
 
+    import osmosis_tpu_torch.models.preset as MP
     import osmosis_tpu_torch.pipelines.restore as R
 
     path, cfg = write_preset(workdir, "osmosis_sample_hybrid_config.yaml", checkpoint,
@@ -1012,8 +1013,8 @@ def run_bf16_hybrid(workdir, checkpoint, gn_sites, ups, pools):
     k = int(cfg["conditioning"]["params"]["x_prev_every"])
     full = len(range(0, STEPS, k))  # x_prev steps: chain positions 0, k, 2k, ...
     loaded = []
-    load_unet = R.load_unet
-    R.load_unet = lambda *a, **kw: loaded.append(load_unet(*a, **kw)) or loaded[-1]
+    load_unet = MP.load_unet  # the preset's loader, which run_restoration calls
+    MP.load_unet = lambda *a, **kw: loaded.append(load_unet(*a, **kw)) or loaded[-1]
     try:
         torch.cuda.reset_peak_memory_stats()
         zero_counts()
@@ -1023,7 +1024,7 @@ def run_bf16_hybrid(workdir, checkpoint, gn_sites, ups, pools):
         wall = time.perf_counter() - t0
         launches = read_counts()
     finally:
-        R.load_unet = load_unet
+        MP.load_unet = load_unet
     peak = torch.cuda.max_memory_allocated()
     expected = {"group_norm_forward": len(gn_sites) * STEPS,
                 "group_norm_backward": len(gn_sites) * full,
@@ -1778,6 +1779,7 @@ def run_toy_loop(workdir):
     import torch
     import yaml
 
+    import osmosis_tpu_torch.models.preset as MP
     import osmosis_tpu_torch.pipelines.restore as R
     from osmosis_tpu_torch.models.convert import load_params_msgpack, state_dict_from_jax
     from osmosis_tpu_torch.models.unet import unet_config_from_yaml
@@ -1806,14 +1808,14 @@ def run_toy_loop(workdir):
     with open(path, "w") as f:
         yaml.safe_dump(cfg, f)
     loaded = []
-    load_unet = R.load_unet
-    R.load_unet = lambda *a, **kw: loaded.append(load_unet(*a, **kw)) or loaded[-1]
+    load_unet = MP.load_unet  # the preset's loader, which run_restoration calls
+    MP.load_unet = lambda *a, **kw: loaded.append(load_unet(*a, **kw)) or loaded[-1]
     printed = io.StringIO()
     try:
         with contextlib.redirect_stdout(printed):
             rd = R.run_restoration(path, device="cuda:0")
     finally:
-        R.load_unet = load_unet
+        MP.load_unet = load_unet
     if "Randomly initialize" in printed.getvalue():
         raise AssertionError("the restore run fell back to random weights: "
                              + printed.getvalue()[-2000:])

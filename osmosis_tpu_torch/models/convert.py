@@ -354,7 +354,8 @@ def cast_params_half(model: UNetModel, dtype: torch.dtype = torch.bfloat16) -> U
 
 
 class CheckpointMismatch(RuntimeError):
-    """A checkpoint that reads but does not fit the UNet's config."""
+    """A checkpoint that reads but does not fit the model's config (the
+    UNet's here, the DiT's in ``models/dit``)."""
 
 
 def unet_from_msgpack(path: str, cfg: UNetConfig, seed: int = 0) -> UNetModel:

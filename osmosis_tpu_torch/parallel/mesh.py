@@ -117,9 +117,12 @@ def shard_params(model: nn.Module, mesh: Mesh) -> nn.Module:
     ``DTensor`` that is ``Replicate()`` over dp and ``Shard(0)`` or
     ``Replicate()`` over tp (:func:`layout`), this rank keeping its slice;
     then the model computes under the mesh (``tp.parallelize``). Every rank
-    must hold the same full weights before. On the 1 x 1 mesh the model is
-    returned as it is."""
-    if mesh.device_mesh is None:
+    must hold the same full weights before. On the 1 x 1 mesh, and for a
+    model other than the UNet at tp = 1, the model is returned as it is; such
+    a model at tp > 1 raises (``tp.shardable``)."""
+    from .tp import shardable
+
+    if not shardable(model, mesh.tp) or mesh.device_mesh is None:
         return model
     from torch.distributed.tensor import DTensor, Replicate, Shard
 

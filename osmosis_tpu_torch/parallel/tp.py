@@ -37,7 +37,7 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from ..models.unet import TokenConv1d
+from ..models.unet import TokenConv1d, UNetModel
 
 
 def _channels_last_view(t: torch.Tensor) -> torch.Tensor:
@@ -87,6 +87,19 @@ class Enter(torch.autograd.Function):
 
 
 SHARDABLE = (nn.Conv2d, nn.Linear, TokenConv1d)
+
+
+def shardable(model: nn.Module, size: int) -> bool:
+    """Does ``mesh.shard_params`` place ``model`` on the mesh? The ADM UNet,
+    yes. Any other model (a DiT preset's) is left whole on every rank at
+    tp = 1 and refused at tp > 1: tp shards the UNet alone."""
+    if isinstance(model, UNetModel):
+        return True
+    if size > 1:
+        raise NotImplementedError(
+            f"tensor parallelism (tp = {size}) shards the ADM UNet only, not a "
+            f"{type(model).__name__}: run this preset with tp = 1")
+    return False
 
 
 def _pre(module, args, kwargs, *, compute, tp):

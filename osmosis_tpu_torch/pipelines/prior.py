@@ -25,8 +25,7 @@ from .. import perf as PF
 from ..data import postprocess as P
 from ..diffusion.sampler import SamplerConfig, sample_loop
 from ..diffusion.schedules import make_schedule
-from ..models.convert import load_unet
-from ..models.unet import unet_config_from_yaml
+from ..models.preset import load_model, model_settings, norm_name
 from ..parallel import multihost as MH
 from ..utils import native
 from ..utils.rundir import make_output_dirs
@@ -51,7 +50,7 @@ def run_prior_sampling(config_file: str, device="cuda:0",
     if dev.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    image_size = args.unet_model["image_size"]
+    image_size = model_settings(args)["image_size"]
 
     out_path = allocate_run_dir(
         os.path.abspath(pjoin(save_dir_override or args.save_dir, "RGBD_prior")), config_file,
@@ -59,12 +58,12 @@ def run_prior_sampling(config_file: str, device="cuda:0",
     paths = make_output_dirs(out_path, args.save_singles, args.save_grids,
                              singles_subdirs=("rgb", "depth_color"))
     logger = configure_logger(out_path, dev)
-    logger.log(f"pretrained model file: {args.unet_model['model_path']}")
+    logger.log(f"pretrained model file: {model_settings(args)['model_path']}")
 
     dtype = torso_dtype(args, dtype)
-    ucfg = unet_config_from_yaml(args.unet_model)
-    model = load_unet(args.unet_model.get("model_path", ""), ucfg, dev, dtype=dtype)
-    logger.log(f"Device: {precision_str(dev, dtype)}\nHost ops: {native.status()}")
+    model = load_model(args, dev, dtype)
+    logger.log(f"Device: {precision_str(dev, dtype, norm_name(args))}\n"
+               f"Host ops: {native.status()}")
 
     T = args.diffusion["steps"]
     num_steps = int(args.diffusion.get("timestep_respacing", T) or T)

@@ -58,8 +58,7 @@ from ..diffusion.sampler import SamplerConfig
 from ..diffusion.schedules import make_schedule
 from ..guidance.noise import get_noiser
 from ..guidance.operators import convert_depth, get_operator
-from ..models.convert import load_unet
-from ..models.unet import unet_config_from_yaml
+from ..models.preset import load_model, model_settings, norm_name
 from ..parallel import multihost as MH
 from ..parallel.runner import lane, make_batched_segment_runner
 from ..utils import logging as L
@@ -137,16 +136,18 @@ def _grad_mode_str(cp):
 
 
 def torso_dtype(args, dtype=torch.float32) -> torch.dtype:
-    """The UNet torso dtype of a run: bfloat16 where the config sets
-    ``use_fp16`` (the JAX package's half precision on the TPU), else ``dtype``."""
-    return torch.bfloat16 if args.unet_model.get("use_fp16") else dtype
+    """The model's torso dtype of a run: bfloat16 where the preset's model
+    section sets ``use_fp16`` (the JAX package's half precision on the TPU),
+    else ``dtype``."""
+    return torch.bfloat16 if model_settings(args).get("use_fp16") else dtype
 
 
-def precision_str(device, dtype) -> str:
-    """The device and the arithmetic a run uses, for the run header."""
+def precision_str(device, dtype, norm: str = "GroupNorm") -> str:
+    """The device and the arithmetic a run uses, for the run header; ``norm``
+    names the model's norm (``models/preset.norm_name``)."""
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else str(device)
     if dtype == torch.bfloat16:
-        return f"{name}, bf16 torso, fp32 GroupNorm statistics"
+        return f"{name}, bf16 torso, fp32 {norm} statistics"
     if device.type == "cuda":
         return (f"{name}, fp32 with TF32 off "
                 "(cudnn.allow_tf32 = False, cuda.matmul.allow_tf32 = False)")
@@ -225,7 +226,7 @@ def _log_run_header(logger, args, device, dtype):
             f"\n     Update start from: {sp['update_start']}, end: {sp['update_end']}"
             f"\n     M: {sp['local_M']}, start: {sp['s_start']}, end: {sp['s_end']}"
         )
-    txt += f"\nDevice: {precision_str(device, dtype)}"
+    txt += f"\nDevice: {precision_str(device, dtype, norm_name(args))}"
     logger.log(txt)
 
 
@@ -371,7 +372,7 @@ def run_restoration(config_file: str, device="cuda:0",
     if dev.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    image_size = args.unet_model["image_size"]
+    image_size = model_settings(args)["image_size"]
     data_config = args.data
     gt_flag = bool(data_config.get("ground_truth", False))
     transform = partial(TR.preprocess_image, size=image_size)
@@ -382,8 +383,7 @@ def run_restoration(config_file: str, device="cuda:0",
         dataset = D.ImagesFolder(data_config["root"], transform=transform)
 
     dtype = torso_dtype(args, dtype)
-    ucfg = unet_config_from_yaml(args.unet_model)
-    model = load_unet(args.unet_model.get("model_path", ""), ucfg, dev, dtype=dtype)
+    model = load_model(args, dev, dtype)
     rgb_guidance = bool(getattr(args, "rgb_guidance", False))
 
     measure_config = args.measurement
@@ -395,7 +395,7 @@ def run_restoration(config_file: str, device="cuda:0",
                                 config_file, perf, resume=resume)
     paths = make_output_dirs(out_path, args.save_singles, args.save_grids)
     logger = configure_logger(out_path, dev)
-    logger.log(f"pretrained model file: {args.unet_model['model_path']}")
+    logger.log(f"pretrained model file: {model_settings(args)['model_path']}")
     if not rgb_guidance:
         _log_run_header(logger, args, dev, dtype)
     chain_checkpoint = bool(getattr(args, "chain_checkpoint", False))
@@ -733,7 +733,7 @@ def _save_osmosis_outputs(args, paths, orig_name, global_ii, ref_img, res, opera
         logger.log(
             "WARNING: non-finite outputs — the chain diverged. This is "
             "expected when sampling with randomly initialized weights "
-            "(no checkpoint at unet_model.model_path)."
+            "(no checkpoint at the model section's model_path)."
         )
     sample_rgb = x0[..., 0:3]
     sample_depth = x0[..., 3]

@@ -4,9 +4,10 @@ JAX package's ``tools/serve.py``).
     python -m osmosis_tpu_torch.tools.serve [-c configs/osmosis_sample_fast_config.yaml] \\
         [--port 8200] [--host 127.0.0.1] [-d <cuda idx> | --cpu]
 
-The server loads the preset's UNet once (bf16 torso where the preset sets
-``use_fp16``, channels_last, on the device), runs one whole restore of a
-zeros image (which builds the CUDA kernels and warms cuDNN), then serves:
+The server loads the preset's model once (``models/preset``: the UNet or the
+DiT, bf16 torso where the preset sets ``use_fp16``, on the device), runs one
+whole restore of a zeros image (which builds the CUDA kernels and warms
+cuDNN), then serves:
 
     POST /restore[?seed=N]   body: PNG/JPEG bytes -> JSON
                              {"rgb_png": <b64>, "depth_png": <b64>, "phi": {...},
@@ -51,8 +52,7 @@ from ..diffusion.sampler import SamplerConfig
 from ..diffusion.schedules import make_schedule
 from ..guidance.noise import get_noiser
 from ..guidance.operators import get_operator
-from ..models.convert import load_unet
-from ..models.unet import unet_config_from_yaml
+from ..models.preset import load_model, model_settings
 from ..pipelines.restore import resolve_device, torso_dtype
 
 MAX_BODY = 64 * 1024 * 1024
@@ -79,11 +79,9 @@ class Restorer:
             torch.backends.cuda.matmul.allow_tf32 = False
         args = C.arguments_from_file(config_file)
         self.args = args
-        self.image_size = args.unet_model["image_size"]
+        self.image_size = model_settings(args)["image_size"]
         self.dtype = torso_dtype(args)
-        self.model = load_unet(args.unet_model.get("model_path", ""),
-                               unet_config_from_yaml(args.unet_model), self.device,
-                               dtype=self.dtype)
+        self.model = load_model(args, self.device, self.dtype)
 
         mc = args.measurement
         op_kwargs = {k: v for k, v in mc["operator"].items() if k != "name"}

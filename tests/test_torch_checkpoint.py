@@ -211,7 +211,7 @@ def test_restore_cli_loads_a_msgpack_checkpoint(tmp_path, capsys):
         loaded.append(orig(*a, **kw))
         return loaded[-1]
 
-    import osmosis_tpu_torch.pipelines.restore as R
+    import osmosis_tpu_torch.models.preset as R  # the preset's loader, which restore calls
 
     R.load_unet, saved = spy, R.load_unet
     try:
