@@ -25,22 +25,40 @@ an fp32 product of bf16 q and k, the softmax is fp32, GroupNorm statistics
 are fp32 with fp32 affines, and the torso's output is cast to fp32 before the
 output norm and the output conv, which runs in fp32 on its bf16-rounded
 weights. The model's output is fp32 either way.
+
+On a card a call replays CUDA graphs (:class:`_Graphs`): one forward graph,
+captured with grad on x, serves the grad-free calls and those whose
+x-pullback follows, and a second graph is that pullback, which
+``autograd.grad`` reaches through :class:`_Replay`. One pair is captured at
+the first call of each input key (shapes, layouts, dtypes, devices and the
+algorithm settings), so the host launches one graph in place of some 500
+kernels a call (some 1000 for a forward and its pullback), and K1-K4,
+cuDNN's convolutions and the attention run inside it as the eager call
+runs them. :func:`takes_graph` names the calls that run eagerly instead:
+off a card, with hooks, remat, a trained parameter or inside another
+capture.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import operator
 from typing import Any, Dict, List, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
+from torch.nn.modules import module as _module
 from torch.utils.checkpoint import checkpoint
 
 from ..config import parse_attention_resolutions, parse_channel_mult
 from ..utils import profiling
 from .nn import GroupNorm32, avg_pool_2x, timestep_embedding, upsample_nearest_2x, zero_module
+
+
+_REQUIRES_GRAD = operator.attrgetter("requires_grad")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -340,6 +358,8 @@ class UNetModel(nn.Module):
             GroupNorm32(ch), nn.SiLU(),
             zero_module(Float32Conv2d(ch, cfg.out_channels, 3, padding=1)),
         )
+        self._graphs: Dict[tuple, _Graphs] = {}
+        self._watched = None  # (hook tables, parameters): _graphable
 
     def _run_layer(self, layer: nn.Module, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         args = (h, emb) if isinstance(layer, ResBlock) else (h,)
@@ -349,25 +369,187 @@ class UNetModel(nn.Module):
             return checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=False)
         return layer(*args)
 
+    def _apply(self, fn, *args, **kwargs):
+        self._graphs, self._watched = {}, None  # a cast or a move: new weights, capture again
+        return super()._apply(fn, *args, **kwargs)
+
+    def load_state_dict(self, *args, **kwargs):
+        self._graphs, self._watched = {}, None  # the graphs read the parameters where they were
+        return super().load_state_dict(*args, **kwargs)
+
+    def _graphable(self, x: torch.Tensor, timesteps: torch.Tensor) -> bool:
+        """Does this call take the CUDA graphs (:func:`takes_graph`)?"""
+        return x.is_cuda and takes_graph(capturing=torch.cuda.is_current_stream_capturing(),
+                                         **self._observe(timesteps))
+
+    def _observe(self, timesteps: torch.Tensor) -> Dict[str, bool]:
+        """What :func:`takes_graph` reads of the model and of the call, but
+        the stream. The hook tables (the global ones and each
+        module's) and the parameters are gathered once, and read at each
+        call."""
+        if self._watched is None:
+            hooks = [_module._global_forward_hooks, _module._global_forward_pre_hooks,
+                     _module._global_backward_hooks, _module._global_backward_pre_hooks]
+            for m in self.modules():
+                hooks += (m._forward_hooks, m._forward_pre_hooks, m._backward_hooks,
+                          m._backward_pre_hooks)
+            self._watched = tuple(hooks), tuple(self.parameters())
+        hooks, params = self._watched
+        return dict(hooked=any(hooks), remat=self.cfg.remat,
+                    other_grads=timesteps.requires_grad or any(map(_REQUIRES_GRAD, params)))
+
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
         """``x`` NHWC [B, H, W, in_channels], ``timesteps`` [B] -> NHWC
         [B, H, W, out_channels]. Counts ``unet.calls``; a ``unet.forward``
-        span under ``utils/profiling.tracing()``."""
+        span under ``utils/profiling.tracing()``. On a card, where
+        :func:`takes_graph` allows it, the call replays the CUDA graphs of its
+        input's key (:class:`_Graphs`), and its x-pullback replays theirs."""
         profiling.count("unet.calls")
         with profiling.span("unet.forward", batch=x.shape[0]):
-            dt = self.cfg.dtype
-            emb = self.time_embed(timestep_embedding(timesteps, self.cfg.model_channels).to(dt))
-            h = x.permute(0, 3, 1, 2).to(dt)
-            hs = []
-            for block in self.input_blocks:
-                for layer in block:
-                    h = self._run_layer(layer, h, emb)
-                hs.append(h)
-            for layer in self.middle_block:
+            if not self._graphable(x, timesteps):
+                return self._forward(x, timesteps)
+            key = _graph_key(x, timesteps)
+            graphs = self._graphs.get(key)
+            if graphs is None:
+                graphs = self._graphs[key] = _Graphs(self._forward, x, timesteps)
+            if torch.is_grad_enabled() and x.requires_grad:
+                return _Replay.apply(graphs, self._forward, x, timesteps)
+            return graphs.forward(x, timesteps)
+
+    def _forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+        dt = self.cfg.dtype
+        emb = self.time_embed(timestep_embedding(timesteps, self.cfg.model_channels).to(dt))
+        h = x.permute(0, 3, 1, 2).to(dt)
+        hs = []
+        for block in self.input_blocks:
+            for layer in block:
                 h = self._run_layer(layer, h, emb)
-            for block in self.output_blocks:
-                h = torch.cat([h, hs.pop()], dim=1)
-                for layer in block:
-                    h = self._run_layer(layer, h, emb)
-            h = self.out[2](self.out[0](h.float(), act="silu"))
-            return h.permute(0, 2, 3, 1)
+            hs.append(h)
+        for layer in self.middle_block:
+            h = self._run_layer(layer, h, emb)
+        for block in self.output_blocks:
+            h = torch.cat([h, hs.pop()], dim=1)
+            for layer in block:
+                h = self._run_layer(layer, h, emb)
+        h = self.out[2](self.out[0](h.float(), act="silu"))
+        return h.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the forward and its x-pullback
+# ---------------------------------------------------------------------------
+
+def takes_graph(*, hooked: bool, remat: bool, other_grads: bool, capturing: bool) -> bool:
+    """Does a call on a card replay the CUDA graphs? Not where a replay
+    would skip or break what the eager call does: a module of
+    the model has hooks, or a global module hook is set (``hooked``:
+    ``parallel/tp`` runs collectives in them, ``FlopCounterMode`` counts
+    with them), ``remat`` recomputes blocks in the backward, a parameter or
+    the timesteps want a gradient (``other_grads``: training), or the stream
+    is already capturing a graph (``capturing``: ``utils/timing``)."""
+    return not (hooked or remat or other_grads or capturing)
+
+
+def _graph_key(x: torch.Tensor, t: torch.Tensor) -> tuple:
+    """What a graph was captured for: the inputs' shapes, layouts, dtypes and
+    devices, and the settings that pick cuDNN's and cuBLAS's algorithms."""
+    return (tuple(x.shape), x.stride(), x.dtype, x.device, tuple(t.shape), t.dtype, t.device,
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+            torch.are_deterministic_algorithms_enabled())
+
+
+class _Graphs:
+    """The forward ``fn(x, t)`` with grad on x and its x-pullback
+    ``autograd.grad(out, x, g)``, captured as two CUDA graphs in one memory
+    pool at one input key, after two eager calls of both on a side stream
+    (cuDNN's and cuBLAS's plans). The pullback's capture keeps the autograd
+    graph, so the forward's activations stay where the backward graph reads
+    them and no later allocation takes their memory.
+
+    Both kinds of call replay the one forward graph: a grad-free one and one
+    whose pullback follows. Every replay copies its inputs into the graphs'
+    own and returns a copy of the output or of the gradient, which no later
+    replay overwrites. ``generation`` counts forward replays, so a pullback
+    knows whether the activations are still its forward's.
+
+    Counters: the build (warm-up calls and captures) counts nothing but
+    ``unet.graph_captures``; each forward replay adds ``unet.graph_replays``
+    and what the kernel wrappers counted during the forward's capture
+    (``<wrapper>.launches``, ``.kernel_launches``), each pullback replay
+    ``unet.graph_pullbacks`` and what they counted during its capture, so
+    that the wrappers' counters read as the eager calls would. Not for
+    concurrent calls from several threads."""
+
+    def __init__(self, fn, x: torch.Tensor, t: torch.Tensor):
+        dev = x.device
+        before = profiling.counters()
+        with torch.cuda.device(dev), torch.enable_grad():
+            self.x = x.detach().clone().requires_grad_(True)
+            self.t = t.detach().clone()
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    out = fn(self.x, self.t)
+                    torch.autograd.grad(out, self.x, torch.zeros_like(out))
+                del out
+            torch.cuda.current_stream(dev).wait_stream(side)
+            warm = profiling.counters()
+            self.fwd = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.fwd):
+                self.out = fn(self.x, self.t)
+            captured = profiling.counters()
+            self.g = torch.empty_like(self.out)
+            self.bwd = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.bwd, pool=self.fwd.pool()):
+                (self.gx,) = torch.autograd.grad(self.out, self.x, self.g, retain_graph=True)
+            done = profiling.counters()
+        self.fwd_counts, self.bwd_counts = captured - warm, done - captured
+        profiling.count_all({k: -n for k, n in (done - before).items()})
+        profiling.count("unet.graph_captures")
+        self.generation = 0
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad(), torch.cuda.device(self.x.device):
+            self.x.copy_(x)
+            self.t.copy_(t)
+            self.fwd.replay()
+        self.generation += 1
+        profiling.count_all(self.fwd_counts)
+        profiling.count("unet.graph_replays")
+        return self.out.detach().clone()
+
+    def backward(self, g: torch.Tensor) -> torch.Tensor:
+        with torch.cuda.device(self.x.device):
+            self.g.copy_(g)
+            self.bwd.replay()
+        profiling.count_all(self.bwd_counts)
+        profiling.count("unet.graph_pullbacks")
+        return self.gx.clone()
+
+
+class _Replay(torch.autograd.Function):
+    """A graphed call with grad on x: the forward replays the forward graph,
+    the backward the pullback's. A backward whose forward is no longer the
+    graphs' newest replay (another forward ran in between) does not read
+    their activations: it runs the forward again eagerly and pulls back
+    through that."""
+
+    @staticmethod
+    def forward(ctx, graphs, fn, x, t):
+        out = graphs.forward(x, t)
+        ctx.graphs, ctx.fn, ctx.generation = graphs, fn, graphs.generation
+        ctx.save_for_backward(x, t)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        if ctx.generation == ctx.graphs.generation:
+            return None, None, ctx.graphs.backward(g), None
+        x, t = ctx.saved_tensors
+        with torch.enable_grad():
+            xr = x.detach().requires_grad_(True)
+            (gx,) = torch.autograd.grad(ctx.fn(xr, t), xr, g)
+        return None, None, gx, None

@@ -15,9 +15,11 @@
   * ``count(name, n)`` / ``counters()`` / ``reset_counters()``: the
     process's counters, always on: ``guided.steps``, ``guided.x_prev_steps``,
     ``guided.phi_iters`` and ``unet.calls`` where the chain does the work,
-    and each kernel wrapper's launches (``<wrapper>.launches``; the
-    GroupNorm kernels' ``kernel_launches``, ``param_sum_launches`` and
-    ``film_sum_launches`` too);
+    the UNet's CUDA graphs (``unet.graph_captures``, ``unet.graph_replays``,
+    ``unet.graph_pullbacks``), and each kernel wrapper's launches
+    (``<wrapper>.launches``; the GroupNorm kernels' ``kernel_launches``,
+    ``param_sum_launches`` and ``film_sum_launches`` too), a graph's replay
+    adding what its capture counted;
   * ``enable_nan_debugging()``: autograd's anomaly mode, which raises where a
     backward makes a NaN.
 """
@@ -31,7 +33,7 @@ import itertools
 import threading
 import time
 from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Mapping
 
 import torch
 
@@ -129,6 +131,13 @@ def count(name: str, n: int = 1):
     """Add ``n`` to the counter ``name``."""
     with _LOCK:
         _COUNTS[name] += n
+
+
+def count_all(counts: Mapping[str, int]):
+    """Add each of ``counts`` to its counter."""
+    with _LOCK:
+        for name, n in counts.items():
+            _COUNTS[name] += n
 
 
 def counters() -> collections.Counter:
